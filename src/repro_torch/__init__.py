@@ -1,0 +1,13 @@
+"""The PyTorch/CUDA port of CompMat: datalog reasoning over compressed RDF
+knowledge bases (Hu, Urbani, Motik, Horrocks — CIKM 2019) on an NVIDIA
+H100.
+
+Subpackages mirror the JAX package's layout: ``core`` (the paper's
+engine on tensors), ``kernels`` (hand-written CUDA kernels with their
+plain PyTorch versions), ``obs`` (spans, metrics, byte reports).
+:mod:`.convert` carries compressed state over from numpy arrays.
+The entry points run on the card unless the caller passes
+``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,75 @@
+"""Carry compressed state across from numpy arrays into the port.
+
+The JAX package's state (its ``ColumnStore`` nodes, its meta-facts, its
+datasets) is handed over as plain numpy arrays and tuples, so the port
+imports nothing of that package.  With these, the same compressed state
+can be fed to the port's ``match`` / ``sjoin`` / ``xjoin`` / ``elim_dup``
+and to the reference's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.columns import ColumnStore, _Concat, _Leaf
+from .core.metafacts import FactStore, MetaFact
+from .core.util import resolve_device
+
+__all__ = ["dataset_to_device", "facts_from_numpy", "store_from_numpy"]
+
+
+def store_from_numpy(nodes: dict, next_id: int, device=None) -> ColumnStore:
+    """A :class:`ColumnStore` with exactly the given nodes under their
+    ids: ``nodes`` maps a meta-constant id to ``("leaf", run_values,
+    run_counts)`` or ``("concat", children)``; ``next_id`` is the next id
+    the store hands out.  ``device=None`` is the card."""
+    store = ColumnStore(resolve_device(device))
+    dev = store.device
+    for cid in sorted(nodes):
+        kind, *payload = nodes[cid]
+        if kind == "leaf":
+            rv = torch.as_tensor(np.asarray(payload[0], dtype=np.int64)).to(dev)
+            rc = torch.as_tensor(np.asarray(payload[1], dtype=np.int64)).to(dev)
+            node = _Leaf(rv, rc, int(np.asarray(payload[1]).sum()))
+        elif kind == "concat":
+            children = [int(c) for c in payload[0]]
+            node = _Concat(children, 0)
+        else:
+            raise ValueError(f"node {cid}: unknown kind {kind!r}")
+        store._nodes[int(cid)] = node
+    # composite lengths and parent links once every node exists
+    for cid, node in store._nodes.items():
+        if isinstance(node, _Concat):
+            for c in node.children:
+                store._parents.setdefault(c, set()).add(cid)
+
+    def length(cid: int) -> int:
+        node = store._nodes[cid]
+        if isinstance(node, _Concat) and node.length == 0 and node.children:
+            node.length = sum(length(c) for c in node.children)
+        return node.length
+
+    for cid, node in store._nodes.items():
+        length(cid)
+        store._account_add(cid, node)
+    store._next_id = int(next_id)
+    return store
+
+
+def facts_from_numpy(store: ColumnStore, meta_facts) -> FactStore:
+    """A :class:`FactStore` over ``store`` holding ``meta_facts``, a list
+    of ``(pred, column_ids, length, round)`` in order."""
+    facts = FactStore(store)
+    for pred, cols, length, rnd in meta_facts:
+        facts.add(MetaFact(pred, tuple(int(c) for c in cols), int(length), int(rnd)))
+    return facts
+
+
+def dataset_to_device(dataset: dict, device=None) -> dict[str, torch.Tensor]:
+    """``{pred: (n, k) int64 tensor}`` on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    return {
+        pred: torch.as_tensor(np.asarray(rows, dtype=np.int64)).to(dev)
+        for pred, rows in dataset.items()
+    }

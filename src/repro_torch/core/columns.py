@@ -1,0 +1,358 @@
+"""Column store: the paper's meta-constant mapping ``mu``, on tensors.
+
+A *meta-constant* names a vector of constants.  Following Appendix A, the
+mapping ``mu`` sends a meta-constant to either
+
+* a **leaf**: a non-decreasing vector of constants, stored run-length
+  encoded (``run_values`` / ``run_counts``, int64 tensors on the store's
+  device), or
+* a **composite**: a vector of child meta-constants (``Concat``).
+
+Node lengths live on the host, so the DAG's shape (lengths, run counts,
+children) never needs a device read.  A leaf unfolds through the
+``rle_expand`` kernel; unfoldings are cached per node.
+
+The paper's ``shuffle`` (Algorithm 4) splits a leaf ``a`` into ``b_in`` /
+``b_out`` and *redefines* ``mu(a) := b_in . b_out`` (:meth:`split` with
+``inplace=True``); the copy mode, the engines' default, copies the
+survivors into a fresh leaf instead.
+
+Representation-size accounting follows Section 4 of the paper: a mapping
+entry with ``m`` RLE runs costs ``1 + 2*m`` symbols.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import rle_expand
+from ..obs.memory import register_reporter, split_owned_backed, tensor_nbytes
+
+__all__ = ["ColumnStore", "rle_encode"]
+
+_I64 = torch.int64
+
+
+def rle_encode(values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run-length encode a 1-D tensor (returns run_values, run_counts)."""
+    n = values.shape[0]
+    if n == 0:
+        return values[:0], torch.zeros(0, dtype=_I64, device=values.device)
+    change = torch.ones(n, dtype=torch.bool, device=values.device)
+    torch.ne(values[1:], values[:-1], out=change[1:])
+    starts = torch.nonzero(change).flatten()
+    ends = torch.empty_like(starts)
+    ends[:-1] = starts[1:]
+    ends[-1] = n
+    return values[starts], ends - starts
+
+
+def _n_runs_host(ids: list[int]) -> int:
+    return sum(1 for i, c in enumerate(ids) if i == 0 or c != ids[i - 1])
+
+
+class _Leaf:
+    __slots__ = ("run_values", "run_counts", "length")
+
+    def __init__(self, run_values: torch.Tensor, run_counts: torch.Tensor,
+                 length: int):
+        self.run_values = run_values
+        self.run_counts = run_counts
+        self.length = length
+
+
+class _Concat:
+    __slots__ = ("children", "length")
+
+    def __init__(self, children: list[int], length: int):
+        self.children = children
+        self.length = length
+
+
+class ColumnStore:
+    """The mapping ``mu``: meta-constant id -> Leaf | Concat node."""
+
+    def __init__(self, device: torch.device | str = "cpu") -> None:
+        self.device = torch.device(device)
+        self._nodes: dict[int, object] = {}
+        self._parents: dict[int, set[int]] = {}
+        self._unfold_cache: dict[int, torch.Tensor] = {}
+        self._next_id = 0
+        self.n_splits = 0
+        self.n_inplace_redefs = 0
+        # running byte accounting (O(1) memory_report)
+        self._nbytes_owned = 0
+        self._nbytes_backed = 0
+        self._backed_by_id: dict[int, int] = {}
+        self._cache_nbytes = 0
+        register_reporter("columns", self)
+
+    # ------------------------------------------------------------------ #
+    # byte accounting (obs.memory reporter protocol)
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _node_nbytes_of(node) -> int:
+        if isinstance(node, _Leaf):
+            return tensor_nbytes(node.run_values) + tensor_nbytes(node.run_counts)
+        return 8 * len(node.children)
+
+    def _account_add(self, cid: int, node) -> None:
+        if isinstance(node, _Leaf):
+            owned, backed = split_owned_backed(
+                (node.run_values, node.run_counts)
+            )
+        else:
+            owned, backed = 8 * len(node.children), 0
+        self._nbytes_owned += owned
+        self._nbytes_backed += backed
+        if backed:
+            self._backed_by_id[cid] = backed
+
+    def _account_remove(self, cid: int, node) -> None:
+        backed = self._backed_by_id.pop(cid, 0)
+        self._nbytes_backed -= backed
+        self._nbytes_owned -= self._node_nbytes_of(node) - backed
+
+    def _cache_set(self, cid: int, values: torch.Tensor) -> None:
+        prev = self._unfold_cache.get(cid)
+        if prev is not None:
+            self._cache_nbytes -= tensor_nbytes(prev)
+        self._unfold_cache[cid] = values
+        self._cache_nbytes += tensor_nbytes(values)
+
+    def _cache_drop(self, cid: int) -> None:
+        prev = self._unfold_cache.pop(cid, None)
+        if prev is not None:
+            self._cache_nbytes -= tensor_nbytes(prev)
+
+    def memory_report(self) -> dict[str, int]:
+        """Owned node payload bytes, backed node bytes (slices of a larger
+        block), unfold-cache bytes, and the node count."""
+        return {
+            "nodes_bytes": self._nbytes_owned,
+            "nodes_backed_bytes": self._nbytes_backed,
+            "unfold_cache_bytes": self._cache_nbytes,
+            "n_nodes": len(self._nodes),
+        }
+
+    # ------------------------------------------------------------------ #
+    # constructors
+    # ------------------------------------------------------------------ #
+    def _fresh(self) -> int:
+        cid = self._next_id
+        self._next_id += 1
+        return cid
+
+    def _add_leaf(self, run_values, run_counts, length: int) -> int:
+        cid = self._fresh()
+        node = _Leaf(run_values, run_counts, length)
+        self._nodes[cid] = node
+        self._account_add(cid, node)
+        return cid
+
+    def new_leaf(self, values: torch.Tensor) -> int:
+        """Create a leaf meta-constant from a constant vector (stored RLE;
+        the vector itself is kept as the leaf's cached unfolding)."""
+        values = values.to(device=self.device, dtype=_I64)
+        rv, rc = rle_encode(values)
+        cid = self._add_leaf(rv, rc, int(values.shape[0]))
+        self._cache_set(cid, values)
+        return cid
+
+    def new_constant(self, value: int, count: int) -> int:
+        """RLE leaf ``value * count`` (the paper's ``d * n`` notation)."""
+        return self._add_leaf(
+            torch.full((1,), value, dtype=_I64, device=self.device),
+            torch.full((1,), count, dtype=_I64, device=self.device),
+            int(count),
+        )
+
+    def new_concat(self, children: list[int]) -> int:
+        if len(children) == 1:
+            return children[0]
+        length = sum(self.length(c) for c in children)
+        cid = self._fresh()
+        node = _Concat(list(children), length)
+        self._nodes[cid] = node
+        self._account_add(cid, node)
+        for c in children:
+            self._parents.setdefault(c, set()).add(cid)
+        return cid
+
+    # ------------------------------------------------------------------ #
+    # accessors
+    # ------------------------------------------------------------------ #
+    def length(self, cid: int) -> int:
+        return self._nodes[cid].length
+
+    def _first_leaf(self, cid: int) -> _Leaf:
+        node = self._nodes[cid]
+        while isinstance(node, _Concat):
+            node = self._nodes[node.children[0]]
+        return node
+
+    def head_values(self, cids) -> torch.Tensor:
+        """First constant of each meta-constant's unfolding, as a tensor on
+        the store's device: each distinct id is resolved once, with no
+        device read (the singleton-recompression fast path — length-one
+        columns unfold to exactly their head value)."""
+        cids = [int(c) for c in cids]
+        if not cids:
+            return torch.zeros(0, dtype=_I64, device=self.device)
+        uniq = sorted(set(cids))
+        pos = {c: k for k, c in enumerate(uniq)}
+        vals = torch.cat([self._first_leaf(c).run_values[:1] for c in uniq])
+        inv = torch.tensor([pos[c] for c in cids], dtype=_I64).to(self.device)
+        return vals[inv]
+
+    def depth(self, cid: int) -> int:
+        """Meta-constant depth per Appendix B (leaf = 1)."""
+        node = self._nodes[cid]
+        if isinstance(node, _Leaf):
+            return 1
+        return 1 + max(self.depth(c) for c in node.children)
+
+    def n_runs(self, cid: int) -> int:
+        """Number of RLE runs in ``mu(cid)`` (leaf: constant runs;
+        composite: runs over the child-id sequence) — host only."""
+        node = self._nodes[cid]
+        if isinstance(node, _Leaf):
+            return int(node.run_values.shape[0])
+        return _n_runs_host(node.children)
+
+    def repr_size(self, cid: int, adaptive: bool = True) -> int:
+        """Paper metric: ``1 + 2*m`` for ``m`` RLE-encoded entries;
+        ``adaptive=True`` charges incompressible leaves as plain vectors
+        ``1 + n`` when that is cheaper."""
+        rle = 1 + 2 * self.n_runs(cid)
+        if not adaptive:
+            return rle
+        node = self._nodes[cid]
+        plain = 1 + (
+            node.length if isinstance(node, _Leaf) else len(node.children)
+        )
+        return min(rle, plain)
+
+    def reachable(self, roots) -> set[int]:
+        seen: set[int] = set()
+        stack = list(roots)
+        while stack:
+            cid = stack.pop()
+            if cid in seen:
+                continue
+            seen.add(cid)
+            node = self._nodes[cid]
+            if isinstance(node, _Concat):
+                stack.extend(node.children)
+        return seen
+
+    # ------------------------------------------------------------------ #
+    # unfolding
+    # ------------------------------------------------------------------ #
+    def unfold(self, cid: int) -> torch.Tensor:
+        """Recursively unfold a meta-constant into its constant vector."""
+        cached = self._unfold_cache.get(cid)
+        if cached is not None:
+            return cached
+        node = self._nodes[cid]
+        if isinstance(node, _Leaf):
+            out = rle_expand(node.run_values, node.run_counts, node.length)
+        else:
+            parts = [self.unfold(c) for c in node.children]
+            out = (
+                torch.cat(parts)
+                if parts
+                else torch.zeros(0, dtype=_I64, device=self.device)
+            )
+        self._cache_set(cid, out)
+        return out
+
+    def _invalidate_up(self, cid: int) -> None:
+        stack = [cid]
+        while stack:
+            c = stack.pop()
+            self._cache_drop(c)
+            stack.extend(self._parents.get(c, ()))
+
+    # ------------------------------------------------------------------ #
+    # the paper's shuffle split (Algorithm 4, lines 47-52)
+    # ------------------------------------------------------------------ #
+    def split(self, cid: int, keep: torch.Tensor, inplace: bool = True) -> int:
+        """Split a column by a boolean mask over its unfolding; returns the
+        meta-constant holding the surviving positions.
+
+        With ``inplace=True`` every touched leaf ``a`` is split into fresh
+        leaves ``b_in`` / ``b_out`` and ``mu(a)`` is redefined as
+        ``b_in . b_out``.  With ``inplace=False`` (or when the same node
+        occurs twice under ``cid``) a fresh copy of the survivors is
+        returned instead — always sound, slightly larger."""
+        if keep.shape[0] != self.length(cid):
+            raise ValueError("split mask length differs from the column's")
+        self.n_splits += 1
+        if not inplace or self._has_shared_occurrence(cid):
+            return self.new_leaf(self.unfold(cid)[keep])
+        visited: dict[int, int] = {}
+        return self._split_rec(cid, keep, 0, visited)
+
+    def _has_shared_occurrence(self, cid: int) -> bool:
+        """True iff some node occurs more than once in the tree under cid."""
+        seen: set[int] = set()
+        stack = [cid]
+        while stack:
+            c = stack.pop()
+            node = self._nodes[c]
+            if isinstance(node, _Concat):
+                for ch in node.children:
+                    if ch in seen:
+                        return True
+                    seen.add(ch)
+                    stack.append(ch)
+        return False
+
+    def _split_rec(
+        self, cid: int, keep: torch.Tensor, offset: int, visited: dict[int, int]
+    ) -> int:
+        node = self._nodes[cid]
+        n = node.length
+        sub = keep[offset: offset + n]
+        kept = int(sub.sum())
+        if kept == 0:
+            return -1  # nothing survives under this node
+        if kept == n:
+            return cid  # full sharing, no split needed
+        if isinstance(node, _Leaf):
+            vals = rle_expand(node.run_values, node.run_counts, n)
+            if cid in visited:
+                # the same leaf twice under one split root: the first
+                # occurrence was already redefined; copy this one
+                return self.new_leaf(vals[sub])
+            b_in = self.new_leaf(vals[sub])
+            b_out = self.new_leaf(vals[~sub])
+            visited[cid] = b_in
+            # redefine mu(cid) := b_in . b_out  (paper, Alg. 4 line 51)
+            self._account_remove(cid, node)
+            redefined = _Concat([b_in, b_out], n)
+            self._nodes[cid] = redefined
+            self._account_add(cid, redefined)
+            self._parents.setdefault(b_in, set()).add(cid)
+            self._parents.setdefault(b_out, set()).add(cid)
+            self._invalidate_up(cid)
+            self.n_inplace_redefs += 1
+            return b_in
+        parts: list[int] = []
+        off = offset
+        for child in node.children:
+            cl = self.length(child)
+            part = self._split_rec(child, keep, off, visited)
+            if part >= 0:
+                parts.append(part)
+            off += cl
+        if len(parts) == 1:
+            return parts[0]
+        return self.new_concat(parts)
+
+    # ------------------------------------------------------------------ #
+    # stats
+    # ------------------------------------------------------------------ #
+    def n_nodes(self) -> int:
+        return len(self._nodes)

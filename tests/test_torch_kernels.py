@@ -1,0 +1,262 @@
+"""The port's kernels against the JAX package's, on the CPU.
+
+Seeded numpy inputs go through three paths: the port's wrapper on CPU
+tensors (its plain PyTorch version), the JAX Pallas kernel in interpret
+mode, and the JAX package's oracle in ``repro.kernels.ref``.  int32 inputs
+carry the TPU contract (int32-max padding, merge truncation, uncapped
+counts); int64 inputs are held against ``repro.core.util``.  Every
+comparison is exact: these are integer set operations.
+
+The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds
+them against the same plain versions there.  Here the tests check that a
+wrapper handed a tensor it cannot serve without a CUDA build raises
+instead of computing.
+"""
+
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_array_equal
+
+from repro.core import util as jutil
+from repro.kernels import ref as jref
+from repro.kernels.fused import merge_sorted_unique as j_merge
+from repro.kernels.join_bounds import join_bounds as j_join_bounds
+from repro.kernels.rle_expand import rle_expand as j_rle_expand
+from repro.kernels.sorted_member import sorted_member as j_sorted_member
+from repro_torch.kernels import (
+    build,
+    join_bounds,
+    merge_sorted_unique,
+    ops,
+    rle_expand,
+    sorted_member,
+)
+
+BIG32 = np.iinfo(np.int32).max
+BIG64 = np.iinfo(np.int64).max
+
+SHAPES = [(0, 5), (1, 1), (7, 3), (100, 1000), (513, 2049), (300, 0)]
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _sorted32(rng, m, hi=10_000):
+    return np.sort(rng.integers(0, hi, size=m).astype(np.int32))
+
+
+def _pad32(x, n):
+    return np.concatenate([x, np.full(n, BIG32, np.int32)])
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+def test_sorted_member_int32_vs_pallas(n, m):
+    rng = np.random.default_rng(n * 31 + m)
+    a = rng.integers(0, 3_000, size=n).astype(np.int32)
+    b = _sorted32(rng, m, hi=3_000)
+    got = sorted_member(_t(a), _t(b)).numpy()
+    assert_array_equal(got, np.asarray(j_sorted_member(a, b, interpret=True)))
+    assert_array_equal(got, np.asarray(jref.sorted_member_ref(a, b)))
+
+
+def test_sorted_member_int32_sentinel_padding():
+    """All-sentinel padding on both sides: a padded slot of ``a`` meets
+    the padding of ``b``, as in the TPU kernel."""
+    rng = np.random.default_rng(5)
+    a = _pad32(rng.integers(0, 50, size=40).astype(np.int32), 24)
+    b = _pad32(_sorted32(rng, 30, hi=50), 34)
+    got = sorted_member(_t(a), _t(b)).numpy()
+    assert_array_equal(got, np.asarray(j_sorted_member(a, b, interpret=True)))
+    only_pad = np.full(16, BIG32, np.int32)
+    assert sorted_member(_t(only_pad), _t(b)).numpy().all()
+
+
+@pytest.mark.parametrize("n,m", [(0, 4), (50, 0), (200, 700), (1000, 30)])
+def test_sorted_member_int64_vs_util(n, m):
+    rng = np.random.default_rng(n + 7 * m)
+    a = (rng.integers(0, 1 << 20, size=n) << 32) | rng.integers(0, 64, size=n)
+    b = np.unique(
+        (rng.integers(0, 1 << 20, size=m) << 32) | rng.integers(0, 64, size=m)
+    ).astype(np.int64)
+    got = sorted_member(_t(a.astype(np.int64)), _t(b)).numpy()
+    assert_array_equal(got, jutil.sorted_member(a.astype(np.int64), b))
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+def test_join_bounds_int32_vs_pallas(n, m):
+    rng = np.random.default_rng(n * 7 + m)
+    l = rng.integers(0, 300, size=n).astype(np.int32)
+    r = _sorted32(rng, m, hi=300)
+    lo, hi = join_bounds(_t(l), _t(r))
+    assert lo.dtype == torch.int32 and hi.dtype == torch.int32
+    jlo, jhi = j_join_bounds(l, r, interpret=True)
+    rlo, rhi = jref.join_bounds_ref(l, r)
+    assert_array_equal(lo.numpy(), np.asarray(jlo))
+    assert_array_equal(hi.numpy(), np.asarray(jhi))
+    assert_array_equal(lo.numpy(), np.asarray(rlo))
+    assert_array_equal(hi.numpy(), np.asarray(rhi))
+
+
+def test_join_bounds_int64_vs_searchsorted():
+    rng = np.random.default_rng(11)
+    l = rng.integers(-(1 << 40), 1 << 40, size=500).astype(np.int64)
+    r = np.sort(np.concatenate([l[:100], rng.integers(-(1 << 40), 1 << 40, 300)]))
+    lo, hi = join_bounds(_t(l), _t(r.astype(np.int64)))
+    assert_array_equal(lo.numpy(), np.searchsorted(r, l, side="left"))
+    assert_array_equal(hi.numpy(), np.searchsorted(r, l, side="right"))
+
+
+@pytest.mark.parametrize(
+    "runs",
+    [
+        [(5, 1)],
+        [(3, 4), (7, 2), (9, 10)],
+        [(1, 1000)],
+        [(i, (i % 7) + 1) for i in range(300)],
+    ],
+)
+def test_rle_expand_int32_vs_pallas(runs):
+    vals = np.asarray([v for v, _ in runs], dtype=np.int32)
+    cnts = np.asarray([c for _, c in runs], dtype=np.int32)
+    total = int(cnts.sum())
+    got = rle_expand(_t(vals), _t(cnts), total).numpy()
+    assert_array_equal(
+        got, np.asarray(j_rle_expand(vals, cnts, total=total, interpret=True))
+    )
+    assert_array_equal(got, np.asarray(jref.rle_expand_ref(vals, cnts, total)))
+
+
+def test_rle_expand_int64_with_empty_runs():
+    """Zero-length runs are skipped; int64 values survive whole."""
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-(1 << 50), 1 << 50, size=200).astype(np.int64)
+    cnts = rng.integers(0, 4, size=200).astype(np.int64)
+    total = int(cnts.sum())
+    got = rle_expand(_t(vals), _t(cnts), total).numpy()
+    assert_array_equal(got, np.repeat(vals, cnts))
+    empty = rle_expand(_t(vals[:0]), _t(cnts[:0]), 0)
+    assert empty.shape == (0,)
+
+
+def _merge_case(rng, nb, nf, cap, overlap):
+    old = np.unique(rng.integers(0, 2**30, size=nb).astype(np.int32))
+    buf = np.full(cap, BIG32, np.int32)
+    buf[: old.size] = old
+    extra = rng.integers(0, 2**30, size=nf).astype(np.int32)
+    fresh = np.unique(np.concatenate([extra, old[:overlap]]))
+    return buf, fresh
+
+
+@pytest.mark.parametrize(
+    "nb,nf,cap,overlap",
+    [
+        (0, 0, 128, 0),       # empty buf and empty fresh
+        (0, 40, 128, 0),      # all-sentinel buf
+        (60, 0, 128, 0),      # nothing to merge
+        (60, 50, 128, 30),    # duplicates across buf and fresh
+        (64, 64, 128, 0),     # fills buf exactly
+        (100, 90, 128, 10),   # truncates at cap: count stays uncapped
+        (500, 300, 1024, 200),
+    ],
+)
+def test_merge_sorted_unique_int32_vs_pallas(nb, nf, cap, overlap):
+    rng = np.random.default_rng(nb * 13 + nf)
+    buf, fresh = _merge_case(rng, nb, nf, cap, overlap)
+    merged, cnt, n_new = merge_sorted_unique(_t(buf), _t(fresh))
+    j_merged, j_cnt, j_new = j_merge(buf, fresh, interpret=True)
+    r_merged, r_cnt, r_new = jref.merge_sorted_unique_ref(buf, fresh)
+    assert_array_equal(merged.numpy(), np.asarray(j_merged))
+    assert_array_equal(merged.numpy(), r_merged)
+    assert int(cnt[0]) == int(j_cnt[0]) == r_cnt
+    assert int(n_new[0]) == int(j_new[0]) == r_new
+
+
+def test_merge_sorted_unique_fills_exactly_and_pads_fresh():
+    buf = np.full(128, BIG32, np.int32)
+    buf[:100] = np.arange(0, 200, 2)
+    fresh = _pad32(np.arange(1, 57, 2).astype(np.int32), 12)  # 28 new
+    merged, cnt, n_new = merge_sorted_unique(_t(buf), _t(fresh))
+    assert int(cnt[0]) == 128 and int(n_new[0]) == 28
+    assert (merged.numpy() != BIG32).all()
+    assert_array_equal(merged.numpy(), np.asarray(j_merge(buf, fresh, interpret=True)[0]))
+
+
+def test_merge_sorted_unique_int64_into_out_vs_util():
+    """The int64 form folds survivors as ``merge_sorted_unique_np`` does,
+    writing into a second buffer and leaving ``buf`` as it was."""
+    rng = np.random.default_rng(21)
+    old = np.unique((rng.integers(0, 1 << 20, 300) << 32) | rng.integers(0, 9, 300))
+    fresh = np.setdiff1d(
+        np.unique((rng.integers(0, 1 << 20, 200) << 32) | rng.integers(0, 9, 200)),
+        old,
+    )
+    buf = np.full(1024, BIG64, np.int64)
+    buf[: old.size] = old
+    tbuf = _t(buf.copy())
+    out = torch.empty_like(tbuf)
+    merged, cnt, n_new = merge_sorted_unique(tbuf, _t(fresh), out=out)
+    want = jutil.merge_sorted_unique_np(old, fresh)
+    assert merged is out
+    assert int(cnt[0]) == want.size and int(n_new[0]) == fresh.size
+    assert_array_equal(merged.numpy()[: want.size], want)
+    assert (merged.numpy()[want.size:] == BIG64).all()
+    assert_array_equal(tbuf.numpy(), buf)
+    with pytest.raises(ValueError, match="alias"):
+        merge_sorted_unique(tbuf, _t(fresh), out=tbuf)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda x: sorted_member(x, x),
+        lambda x: join_bounds(x, x),
+        lambda x: rle_expand(x, x, 4),
+        lambda x: merge_sorted_unique(x, x),
+    ],
+    ids=["sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique"],
+)
+def test_wrapper_without_cuda_build_raises(call):
+    """Off the CPU a wrapper launches its kernel or raises: here there is
+    no CUDA build, so it raises and computes nothing — and counts
+    nothing."""
+    ops.reset_launch_counts()
+    x = torch.ones(4, dtype=torch.int64, device="meta")
+    with pytest.raises(build.KernelBuildError):
+        call(x)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_build_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the build would run")
+    with pytest.raises(build.KernelBuildError):
+        build.build()
+
+
+def test_cpu_calls_do_not_count():
+    ops.reset_launch_counts()
+    a = torch.arange(10, dtype=torch.int64)
+    sorted_member(a, a)
+    join_bounds(a, a)
+    rle_expand(a, torch.ones(10, dtype=torch.int64), 10)
+    merge_sorted_unique(torch.full((128,), BIG64), a)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize(
+    "args,exc",
+    [
+        ((torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int64)), TypeError),
+        ((torch.zeros(3), torch.zeros(3)), TypeError),
+        ((torch.zeros(3, 2, dtype=torch.int64), torch.zeros(3, dtype=torch.int64)), ValueError),
+        ((torch.zeros(6, dtype=torch.int64)[::2], torch.zeros(3, dtype=torch.int64)), ValueError),
+    ],
+    ids=["mixed-types", "float", "2-d", "strided"],
+)
+def test_wrappers_reject_bad_operands(args, exc):
+    with pytest.raises(exc):
+        sorted_member(*args)
+    with pytest.raises(exc):
+        join_bounds(*args)

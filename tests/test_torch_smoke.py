@@ -1,0 +1,73 @@
+"""The kernel-check inputs of ``chip_smoke.py``, built on the CPU.
+
+The script times each kernel at the operand lengths the launch meter
+recorded on the full-size run; these tests hold its input builder and its
+bytes bound to those lengths at a small size.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n,hi", [(0, 10), (1000, 1000), (5000, 2**31 - 2)])
+def test_distinct_is_exact(smoke, n, hi):
+    x = smoke._distinct(np.random.default_rng(3), n, hi)
+    assert x.shape == (n,)
+    assert np.unique(x).shape == (n,)
+    assert n == 0 or (x.min() >= 0 and x.max() < hi)
+
+
+SHAPES = {
+    "sorted_member": {"n": 700, "m": 900},
+    "join_bounds": {"n": 1100, "m": 600},
+    "rle_expand": {"runs": 50, "total": 3000},
+    "merge_sorted_unique": {"cap": 4096, "count": 300, "fresh": 2000},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_timed_case_has_the_metered_lengths(smoke, name, dtype):
+    cases = smoke._cases(name, SHAPES[name], dtype, torch.device("cpu"),
+                         np.random.default_rng(5))
+    (args,) = [a for _, a, timed in cases if timed]
+    sh = SHAPES[name]
+    size = dtype.itemsize
+    if name in ("sorted_member", "join_bounds"):
+        a, b = args
+        assert (a.shape[0], b.shape[0]) == (sh["n"], sh["m"])
+        assert torch.equal(b, torch.unique(b))
+        want = (sh["n"] + sh["m"]) * size + (1 if name == "sorted_member" else 8) * sh["n"]
+    elif name == "rle_expand":
+        vals, counts, total = args
+        assert (vals.shape[0], total, int(counts.sum())) == (sh["runs"], sh["total"], sh["total"])
+        want = sh["runs"] * (size + counts.element_size()) + sh["total"] * size
+    else:
+        buf, fresh = args
+        occupied = buf[buf != ref.sentinel(dtype)]
+        assert (buf.shape[0], occupied.shape[0], fresh.shape[0]) == (
+            sh["cap"], sh["count"], sh["fresh"]
+        )
+        assert torch.equal(fresh, torch.unique(fresh))
+        assert torch.equal(occupied, torch.unique(occupied))
+        assert not bool(torch.isin(fresh, occupied).any())
+        want = (sh["count"] + sh["fresh"] + sh["cap"]) * size + 16
+    assert smoke._bytes(name, args, size) == want
