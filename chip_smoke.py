@@ -5,25 +5,48 @@
 
 Phases (progress on stdout, any failure raises and exits non-zero):
 
-1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-             (one ``nvcc`` per source, all in parallel);
-2. small   — ``CMatEngine(fused=True)`` on the card against the same engine
-             on the CPU, on five small workloads;
-3. full    — ``lubm_like(n_dept=500, n_students=1_000_000,
-             n_courses=10_000)`` loaded and materialised on the card with
-             ``fused=True`` (launch counts zeroed just before, read just
-             after: every kernel must have launched), its fact set held
-             against the flat oracle on the CPU;
-4. kernels — each kernel, in int32 and int64, against its plain PyTorch
-             version on the card: seeded inputs at the operand lengths of
-             its largest launch in phase 3 (read from the launch meter)
-             plus edge cases, exact equality; kernel, plain and
-             library-call times at those lengths;
-5. syncs   — the same materialisation once more with CUDA's sync debug
-             mode on, counting host synchronisations;
-6. profile — only with ``--profile``: one more load and materialise under
-             ``torch.profiler``, with device-busy time, launch counts and
-             the top device and host operators.
+1. build             — compile every CUDA kernel from
+                       ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+                       source, all in parallel);
+2. small             — ``CMatEngine(fused=True)`` on the card against the
+                       same engine on the CPU, on five small workloads;
+3. full              — ``lubm_like(n_dept=500, n_students=1_000_000,
+                       n_courses=10_000)`` loaded and materialised on the
+                       card with ``fused=True``, its fact set held against
+                       the flat oracle on the CPU;
+4. small-distributed — ``DistributedEngine`` on the card against the same
+                       engine on the CPU on three small workloads and one
+                       that must regrow its join padding: fact sets, stats
+                       and state buffers row for row;
+5. full-distributed  — ``lubm_like(500, 30_000, 1_000)`` (the largest KB the
+                       engine's 15-bit ids allow at this shape) materialised
+                       on the card, its stats held against the JAX
+                       reference's and its fact set against the flat oracle;
+                       then one ``apply`` deleting about 1 % of
+                       ``takesCourse`` and ``advisor`` and one adding them
+                       back, each held against the flat oracle of the edited
+                       explicit set;
+6. closure           — every two-atom rule whose head pairs a left-only and
+                       a right-only variable applied once more to the full
+                       store through ``fused_join_dedup`` (regrown to its
+                       pair total), merged into an int32 ``FactBuffers``
+                       seeded with the head relation: nothing may be new;
+7. kernels           — each kernel against its plain PyTorch version on the
+                       card (int32 and int64; ``fused_join_dedup`` int32
+                       only): seeded inputs at the operand lengths of its
+                       largest launch on the main path (read from the launch
+                       meter) plus edge cases, exact equality; kernel, plain
+                       and library-call times at those lengths;
+8. syncs             — the phase-3 materialisation once more with CUDA's
+                       sync debug mode on, counting host synchronisations;
+9. profile           — only with ``--profile``: one more load and
+                       materialise of phase 3, and one more distributed
+                       materialise and 1 % delete ``apply`` of phase 5, under
+                       ``torch.profiler``, with device-busy time, launch
+                       counts and the top device and host operators.
+
+Launch counts are zeroed just before each main-path run (phases 3, 5 and
+6) and read just after; every kernel of a path must have launched there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line the device JSON object.  Without a card, or
@@ -34,6 +57,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,11 +74,29 @@ HBM_BYTES_PER_S = 3.35e12
 
 N_DEPT, N_STUDENTS, N_COURSES = 500, 1_000_000, 10_000
 
+#: the distributed engine's full-size KB: 163,500 explicit triples, largest
+#: id 32,500 (below its 2**15 limit); buffers sized as serve_datalog sizes
+#: them, twice the largest predicate (119,755 rows) rounded up
+DIST_KB = {"n_dept": 500, "n_students": 30_000, "n_courses": 1_000}
+DIST_CAPACITY = 1 << 18
+#: what the JAX reference's ``DistributedEngine`` gives on this KB (one
+#: shard, seed 0), with its 680,331 facts over 21 predicates
+DIST_EXPECTED = {
+    "rounds": 15,
+    "n_strata": 14,
+    "n_rule_applications": 24,
+    "rule_applications_skipped": 5,
+    "rows_joined": 149_912,
+    "exchange_regrows": 0,
+}
+DIST_FACTS, DIST_PREDICATES = 680_331, 21
+
 REPLACES = {
     "sorted_member": "src/repro/kernels/sorted_member.py:55",
     "join_bounds": "src/repro/kernels/join_bounds.py:65",
     "rle_expand": "src/repro/kernels/rle_expand.py:43",
     "merge_sorted_unique": "src/repro/kernels/fused.py:215",
+    "fused_join_dedup": "src/repro/kernels/fused.py:110",
 }
 
 
@@ -88,6 +130,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # --------------------------------------------------------------------- #
 def _distinct(rng, n, hi):
     """Exactly ``n`` distinct integers in ``[0, hi)``, in random order."""
+    if n > hi:
+        raise ValueError(f"no {n} distinct integers below {hi}")
     x = np.unique(rng.integers(0, hi, size=n + n // 8 + 16))
     while x.shape[0] < n:
         x = np.unique(np.concatenate([x, rng.integers(0, hi, size=n)]))
@@ -115,6 +159,8 @@ def _cases(name, shape, dtype, dev, rng):
         return torch.cat([x, torch.full((k,), big, dtype=dtype, device=dev)])
 
     empty = t(np.zeros(0, dtype=np.int64))
+    if name == "fused_join_dedup":
+        return _join_cases(shape, t, sorted_t, pad, empty, rng)
     if name in ("sorted_member", "join_bounds"):
         n, m = shape["n"], shape["m"]
         b = sorted_t(_distinct(rng, m, hi))
@@ -167,6 +213,61 @@ def _cases(name, shape, dtype, dev, rng):
     ]
 
 
+def _join_cases(shape, t, sorted_t, pad, empty, rng):
+    """``fused_join_dedup`` cases: the timed one at the largest closure
+    join's lengths and pair count (15-bit payloads), and the edge cases."""
+    n, m, cap = shape["n"], shape["m"], shape["capacity"]
+    l_keys, r_keys = _join_keys(n, m, shape["pairs"], rng)
+    n_pairs = int((np.searchsorted(r_keys, l_keys, "right")
+                   - np.searchsorted(r_keys, l_keys, "left")).sum())
+    if min(n_pairs, cap) != shape["pairs"]:
+        raise AssertionError(f"timed join gives {n_pairs} pairs, not {shape['pairs']}")
+    l_keys, r_keys = t(l_keys), t(r_keys)
+    l_pay, r_pay = t(rng.integers(0, 2**15, size=n)), t(rng.integers(0, 2**15, size=m))
+    sl, sr = t(rng.integers(0, 50, size=300)), sorted_t(rng.integers(0, 50, size=200))
+    slp, srp = t(rng.integers(0, 2**15, size=300)), t(rng.integers(0, 2**16, size=200))
+
+    def full(k, v):
+        return t(np.full(k, v))
+
+    # one key matched 3000 x 300 times: 900 k pairs over many sort tiles,
+    # 30 k distinct codes
+    skew = (full(3000, 7), t(np.arange(3000)), full(300, 7), t(np.arange(300) % 10))
+    return [
+        ("full", (l_keys, l_pay, r_keys, r_pay, cap), True),
+        ("empty-left", (empty, empty, sr, srp, 64), False),
+        ("empty-right", (sl, slp, empty, empty, 64), False),
+        ("zero-capacity", (sl, slp, sr, srp, 0), False),
+        ("all-duplicates", (full(37, 5), full(37, 9), full(11, 5), full(11, 3), 512), False),
+        ("cut-capacity", (l_keys, l_pay, r_keys, r_pay, n // 3), False),
+        ("sentinel-left-keys", (pad(sl, 40), pad(slp, 40), pad(sr, 5), pad(srp, 5), 4096), False),
+        ("disjoint-keys", (sl + 100, slp, sr, srp, 64), False),
+        ("skewed-key", (*skew, 1 << 20), False),
+    ]
+
+
+def _join_keys(n, m, pairs, rng):
+    """Left keys ``(n,)`` and sorted right keys ``(m,)`` whose join gives
+    exactly ``pairs`` pairs.  With ``q, r = divmod(pairs, n)``, ``r`` left
+    rows each name one of ``h`` heavy keys held ``q + 1`` times on the
+    right and the others one of ``l`` light keys held ``q`` times (none:
+    a miss, at ``q == 0``); the remaining right rows hold keys no left row
+    names.  At ``pairs == n`` each right key is held once, as a course has
+    one teacher."""
+    q, r = divmod(pairs, n)
+    h = min(r, m) if not q else max(1, min(r, m // 2 // (q + 1))) if r else 0
+    rest = m - h * (q + 1)
+    l = min(n - r, 1000) if not q else min(n - r, max(rest, 0) // q)
+    if (r and not h) or not l or rest < l * q:
+        raise ValueError(f"no join of {n} x {m} rows gives {pairs} pairs")
+    keys = _distinct(rng, h + l + rest - l * q, 2**31 - 2)
+    heavy, light, spare = keys[:h], keys[h:h + l], keys[h + l:]
+    right = np.concatenate([np.repeat(heavy, q + 1), np.repeat(light, q), spare])
+    left = np.concatenate([heavy[rng.integers(0, max(h, 1), size=r)],
+                           light[rng.integers(0, l, size=n - r)]])
+    return rng.permutation(left), np.sort(right)
+
+
 def _as_list(out):
     return list(out) if isinstance(out, tuple) else [out]
 
@@ -183,6 +284,10 @@ def _bytes(name, args, dtype_size):
     if name == "rle_expand":
         vals, counts, total = args
         return vals.shape[0] * (dtype_size + counts.element_size()) + total * dtype_size
+    if name == "fused_join_dedup":
+        # keys and payloads read once, capacity codes written
+        l_keys, _, r_keys, _, cap = args
+        return (2 * l_keys.shape[0] + 2 * r_keys.shape[0] + cap) * dtype_size
     # only buf's occupied prefix is read; the merge writes all of buf's
     # length and two int64 stats
     buf, fresh = args
@@ -192,9 +297,21 @@ def _bytes(name, args, dtype_size):
     return (nb + fresh.shape[0] + buf.shape[0]) * dtype_size + 16
 
 
+#: what each kernel's ``library_ms`` times, printed beside it
+LIBRARY_CALLS = {
+    "sorted_member": "torch.searchsorted",
+    "join_bounds": "torch.searchsorted, left and right",
+    "rle_expand": "torch.repeat_interleave",
+    "merge_sorted_unique": "torch.unique of torch.cat",
+    "fused_join_dedup": "torch.unique of the packed pairs: the sort-and-dedup "
+                        "half only, as no call computes the join",
+}
+
+
 def _library_call(name, args):
-    """The one PyTorch call that computes the same function (timed as a
-    yardstick only; the port never calls it)."""
+    """The PyTorch call that computes the same function, or the named part
+    of it (``LIBRARY_CALLS``); timed as a yardstick only, the port never
+    calls it."""
     import torch
 
     if name == "sorted_member":
@@ -206,6 +323,11 @@ def _library_call(name, args):
     if name == "rle_expand":
         vals, counts, total = args
         return lambda: torch.repeat_interleave(vals, counts, output_size=total)
+    if name == "fused_join_dedup":
+        from repro_torch.kernels import ref
+
+        codes, _ = ref.join_pairs16(*args)
+        return lambda: torch.unique(codes)
     buf, fresh = args
     return lambda: torch.unique(torch.cat([buf, fresh]))
 
@@ -223,12 +345,16 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]]) -> dict[str, dict]:
         "join_bounds": (kernels.join_bounds, ref.join_bounds),
         "rle_expand": (kernels.rle_expand, ref.rle_expand),
         "merge_sorted_unique": (kernels.merge_sorted_unique, ref.merge_sorted_unique),
+        "fused_join_dedup": (kernels.fused_join_dedup, ref.fused_join_dedup),
     }
     results = {}
     for name, (kernel, plain) in wrappers.items():
         err = 0
         entry = {}
-        for dtype in (torch.int32, torch.int64):
+        # fused_join_dedup exists for the TPU's int32 codes only; the others
+        # are timed in int64, the fused engine's key type
+        dtypes = (torch.int32,) if name == "fused_join_dedup" else (torch.int32, torch.int64)
+        for dtype in dtypes:
             rng = np.random.default_rng(
                 [ops.KERNELS.index(name), dtype.itemsize]
             )
@@ -237,6 +363,12 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]]) -> dict[str, dict]:
                 want = _as_list(plain(*args))
                 torch.cuda.synchronize()
                 for g, w in zip(got, want):
+                    if not isinstance(g, torch.Tensor):  # a host total
+                        if g != w:
+                            raise AssertionError(
+                                f"{name} {dtype} {label}: kernel total {g} != plain {w}"
+                            )
+                        continue
                     if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
                         raise AssertionError(
                             f"{name} {dtype} {label}: kernel != plain version"
@@ -245,15 +377,15 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]]) -> dict[str, dict]:
                         diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
                         err = max(err, int(diff))
                 log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
-                if timed and dtype == torch.int64:
+                if timed and dtype == dtypes[-1]:
                     entry = {
                         "ms": cuda_ms(lambda: kernel(*args)),
                         "plain_ms": cuda_ms(lambda: plain(*args)),
                         "library_ms": cuda_ms(_library_call(name, args)),
-                        "bound_ms": _bytes(name, args, 8) / HBM_BYTES_PER_S * 1e3,
+                        "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BYTES_PER_S * 1e3,
                         "bound_by": "bytes",
                     }
-                    log(f"[kernels] {name} int64 full {shapes[name]}: {entry}")
+                    log(f"[kernels] {name} {str(dtype)[6:]} full {shapes[name]}: {entry}")
         entry["max_abs_err"] = err
         results[name] = entry
     return results
@@ -336,12 +468,214 @@ def run_full(program, dataset) -> dict:
         f"{stats.time_join:.3f}, dedup {stats.time_dedup:.3f}")
     log(f"[full] launches {launches}")
     log(f"[full] largest launch per kernel (operand lengths) {largest}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items() if v == 0 and k != "fused_join_dedup"]
     if missing:
         raise AssertionError(f"full run never launched: {missing}")
     if "count" not in largest["merge_sorted_unique"]:
         raise AssertionError("the merge's launch meter lacks the buffered count")
     return out
+
+
+# --------------------------------------------------------------------- #
+# phases 4-6: the distributed engine and the closure
+# --------------------------------------------------------------------- #
+def _nonempty(facts: dict) -> dict:
+    return {p: r for p, r in facts.items() if r.shape[0]}
+
+
+def _dist_stats(stats) -> dict:
+    """Every non-timing field of a ``DistributedStats``."""
+    return {
+        f.name: getattr(stats, f.name)
+        for f in dataclasses.fields(stats)
+        if not f.name.startswith("time_")
+    }
+
+
+def check_small_distributed() -> None:
+    """The engine on the card against the same engine on the CPU: fact
+    sets, stats and state buffers row for row."""
+    import torch
+
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.generators import chain, lubm_like, paper_example
+
+    workloads = [
+        ("chain", lambda: chain(15), {}),
+        ("paper", lambda: paper_example(4, 3), {}),
+        ("lubm", lambda: lubm_like(4, 50, 8), {}),
+        ("chain-regrow", lambda: chain(30), {"join_capacity": 8}),
+    ]
+    for name, gen, kw in workloads:
+        program, dataset, _ = gen()
+        program = DistributedEngine.supported_program(program)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            eng = DistributedEngine(program, device=device, capacity=1 << 10, **kw)
+            eng.materialise(dataset)
+            runs[device] = eng
+        card, cpu = runs["cuda"], runs["cpu"]
+        if not _facts_equal(card.to_dict(), cpu.to_dict()):
+            raise AssertionError(f"small-distributed {name}: fact sets differ (card vs CPU)")
+        if _dist_stats(card.stats) != _dist_stats(cpu.stats):
+            raise AssertionError(f"small-distributed {name}: stats differ (card vs CPU)")
+        for p, (rows, cnt, lo) in cpu._state.items():
+            crows, ccnt, clo = card._state[p]
+            if (ccnt, clo) != (cnt, lo) or not torch.equal(crows.cpu(), rows):
+                raise AssertionError(f"small-distributed {name}: state of {p} differs")
+        if kw and not card.stats.exchange_regrows:
+            raise AssertionError(f"small-distributed {name}: the join padding never regrew")
+        st = card.stats
+        log(f"[small-distributed] {name}: equal, rounds {st.rounds}, rows_joined "
+            f"{st.rows_joined}, exchange_regrows {st.exchange_regrows}")
+
+
+def _drop_rows(rows: np.ndarray, drop: np.ndarray) -> np.ndarray:
+    """``rows`` without those in ``drop`` (binary rows of 15-bit ids)."""
+    def code(r):
+        return r[:, 0].astype(np.int64) << 32 | r[:, 1].astype(np.int64)
+
+    return rows[~np.isin(code(rows), code(drop))]
+
+
+def run_full_distributed() -> dict:
+    import torch
+
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.flat import flat_seminaive
+    from repro_torch.core.generators import lubm_like
+    from repro_torch.kernels import ops
+
+    program, dataset, _ = lubm_like(**DIST_KB)
+    program = DistributedEngine.supported_program(program)
+    n_explicit = sum(int(v.shape[0]) for v in dataset.values())
+    log(f"[full-distributed] lubm_like({DIST_KB}): {n_explicit} explicit triples, "
+        f"{len(program)} rules, capacity = join_capacity = {DIST_CAPACITY}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = DistributedEngine(program, capacity=DIST_CAPACITY, join_capacity=DIST_CAPACITY)
+    facts = eng.materialise(dataset)  # every predicate, the empty ones too
+    torch.cuda.synchronize()
+    t_mat = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_facts = sum(int(r.shape[0]) for r in facts.values())
+    got = {k: getattr(eng.stats, k) for k in DIST_EXPECTED}
+    log(f"[full-distributed] materialise {t_mat:.3f} s, {got}, {n_facts} facts over "
+        f"{len(facts)} predicates, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()}")
+    log(f"[full-distributed] launches {launches}")
+    if got != DIST_EXPECTED or (n_facts, len(facts)) != (DIST_FACTS, DIST_PREDICATES):
+        raise AssertionError(
+            f"full-distributed: stats {got}, {n_facts} facts over {len(facts)} "
+            f"predicates; the reference gives {DIST_EXPECTED}, {DIST_FACTS} over "
+            f"{DIST_PREDICATES}"
+        )
+    missing = [k for k in ("sorted_member", "join_bounds") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"full-distributed never launched: {missing}")
+    t0 = time.perf_counter()
+    oracle = flat_seminaive(program, dataset, device="cpu")
+    log(f"[full-distributed] flat oracle on the CPU: {time.perf_counter() - t0:.1f} s")
+    if not _facts_equal(_nonempty(facts), _nonempty(oracle)):
+        raise AssertionError("full-distributed: fact set differs from flat_seminaive")
+    log("[full-distributed] fact set equals flat_seminaive")
+
+    rng = np.random.default_rng(0)
+    dels = {
+        p: dataset[p][rng.choice(dataset[p].shape[0], dataset[p].shape[0] // 100, replace=False)]
+        for p in ("takesCourse", "advisor")
+    }
+    edited = {p: _drop_rows(r, dels[p]) if p in dels else r for p, r in dataset.items()}
+    apply_launches = dict.fromkeys(launches, 0)
+    for label, batch, explicit, want in (
+        ("delete", {"deletions": dels}, edited, None),
+        ("re-add", {"additions": dels}, dataset, oracle),
+    ):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = eng.apply(**batch)
+        torch.cuda.synchronize()
+        t_apply = time.perf_counter() - t0
+        for k, v in ops.launch_counts().items():
+            apply_launches[k] += v
+        log(f"[full-distributed] apply {label} of "
+            f"{sum(int(r.shape[0]) for r in dels.values())} rows: {t_apply:.3f} s, "
+            f"rounds {st.rounds}, rule applications {st.n_rule_applications}, "
+            f"overdeleted {st.n_overdeleted}, rederived {st.n_rederived}, deleted "
+            f"{st.n_deleted}, inserted {st.n_inserted}")
+        if want is None:
+            want = flat_seminaive(program, explicit, device="cpu")
+        if not _facts_equal(eng.to_dict(), _nonempty(want)):
+            raise AssertionError(f"full-distributed apply {label}: differs from re-materialisation")
+        log(f"[full-distributed] apply {label}: equals flat_seminaive of the edited explicit set")
+    log(f"[full-distributed] apply launches {apply_launches}")
+    return {"engine": eng, "launches": launches, "apply_launches": apply_launches}
+
+
+def run_closure(eng) -> dict:
+    """Apply each two-atom rule whose head is (left-only variable,
+    right-only variable) once more through ``fused_join_dedup`` and fold
+    the output into an int32 ``FactBuffers`` seeded with the head
+    relation: the store is closed, so nothing may be new."""
+    import torch
+
+    from repro_torch.core.distributed import pack_pairs
+    from repro_torch.kernels import fused_join_dedup, ops, ref
+    from repro_torch.kernels.buffers import FactBuffers
+
+    facts = eng.to_dict()
+    dev = eng.device
+
+    def rel(atom):
+        rows = facts.get(atom.predicate, torch.zeros((0, atom.arity), dtype=torch.int64))
+        return rows.to(dev, torch.int32)
+
+    def col(rows, atom, var):
+        return rows[:, atom.terms.index(var)].contiguous()
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    buffers = FactBuffers(dev, dtype=torch.int32)
+    rules = 0
+    for rule in eng.program:
+        if len(rule.body) != 2 or rule.head.arity != 2:
+            continue
+        a, b = rule.body
+        x, z = rule.head.terms
+        shared = set(a.variables()) & set(b.variables())
+        if x not in a.variables() or x in shared or z not in b.variables() or z in shared:
+            continue
+        (k,) = shared
+        left, right = rel(a), rel(b)
+        r_keys, order = torch.sort(col(right, b, k), stable=True)
+        args = [col(left, a, k), col(left, a, x), r_keys, col(right, b, z)[order].contiguous()]
+        capacity = 4096
+        while True:
+            out, count, total = fused_join_dedup(*args, capacity)
+            p_out, p_count, p_total = ref.fused_join_dedup(*args, capacity)
+            torch.cuda.synchronize()
+            if total != p_total or not (torch.equal(out, p_out) and torch.equal(count, p_count)):
+                raise AssertionError(f"closure {rule}: kernel != plain version at capacity {capacity}")
+            if total <= capacity:
+                break
+            capacity = 1 << (total - 1).bit_length()  # regrow and call again
+        head = rule.head.predicate
+        buffers.merge(head, torch.sort(pack_pairs(rel(rule.head))).values)
+        n_new = buffers.merge(head, out)
+        log(f"[closure] {rule}: {args[0].shape[0]} x {args[2].shape[0]} rows, "
+            f"{total} pairs, {int(count[0])} unique at capacity {capacity}, "
+            f"n_new {n_new}")
+        if n_new:
+            raise AssertionError(f"closure {rule}: {n_new} new facts in a closed store")
+        rules += 1
+    launches = ops.launch_counts()
+    log(f"[closure] {rules} rules, launches {launches}, largest "
+        f"{ops.largest_launches()['fused_join_dedup']}")
+    if not rules or not launches["fused_join_dedup"] or not launches["merge_sorted_unique"]:
+        raise AssertionError("closure: fused_join_dedup or the int32 merge never launched")
+    return {"launches": launches, "largest_launch": ops.largest_launches()}
 
 
 def count_syncs(program, dataset) -> int:
@@ -369,8 +703,42 @@ def _device_us(evt) -> float:
     )
 
 
+def _profile_phases(program, dataset):
+    """``(label, prepare)`` for each traced phase: ``prepare()`` does the
+    untraced set-up and returns the call to trace."""
+    from repro_torch.core import CMatEngine
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.generators import lubm_like
+
+    def cmat_load():
+        eng = CMatEngine(program, fused=True)
+        return lambda: eng.load(dataset)
+
+    def cmat_materialise():
+        eng = CMatEngine(program, fused=True)
+        eng.load(dataset)
+        return eng.materialise
+
+    dist_program, dist_dataset, _ = lubm_like(**DIST_KB)
+    dist_program = DistributedEngine.supported_program(dist_program)
+    dist = DistributedEngine(dist_program, capacity=DIST_CAPACITY, join_capacity=DIST_CAPACITY)
+
+    def dist_materialise():
+        return lambda: dist.materialise(dist_dataset)
+
+    def dist_apply():
+        dels = {p: dist_dataset[p][: dist_dataset[p].shape[0] // 100]
+                for p in ("takesCourse", "advisor")}
+        return lambda: dist.apply(deletions=dels)
+
+    return [("load", cmat_load), ("materialise", cmat_materialise),
+            ("distributed materialise", dist_materialise),
+            ("distributed apply", dist_apply)]
+
+
 def profile_run(program, dataset) -> None:
-    """Trace one load and one materialise with ``torch.profiler``: wall,
+    """Trace the CMat load and materialise, and the distributed
+    materialise and a 1 % delete ``apply``, with ``torch.profiler``: wall,
     device-busy time (kernels and copies as the card ran them) and its
     share of the wall, CUDA kernel launches issued, the top device and
     host operators, and the hand-written kernels' own device time."""
@@ -378,18 +746,14 @@ def profile_run(program, dataset) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import CMatEngine
-
     hand = ("sorted_member_kernel", "join_bounds_kernel", "rle_expand_kernel",
             "merge_rank_kernel", "merge_scatter_kernel")
-    for phase in ("load", "materialise"):
-        eng = CMatEngine(program, fused=True)
-        if phase == "materialise":
-            eng.load(dataset)
+    for phase, prepare in _profile_phases(program, dataset):
+        call = prepare()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.load(dataset) if phase == "load" else eng.materialise()
+            call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ka = prof.key_averages()
@@ -412,7 +776,7 @@ def profile_run(program, dataset) -> None:
             if any(k in e.key for k in hand):
                 log(f"[profile] {phase} hand kernel: {_device_us(e) / 1e3:.3f} ms "
                     f"{e.count} x {e.key[:90]}")
-        del eng, prof
+        del call, prof
 
 
 def nvidia_smi() -> str:
@@ -426,7 +790,7 @@ def nvidia_smi() -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace one more load and materialise with torch.profiler")
+                        help="trace the CMat and distributed runs once more with torch.profiler")
     args = parser.parse_args()
     import torch
 
@@ -466,28 +830,44 @@ def main() -> int:
     del full["engine"], oracle
     torch.cuda.empty_cache()
 
-    kernel_numbers = check_kernels(torch.device("cuda"), full["largest_launch"])
+    check_small_distributed()
+    dist = run_full_distributed()
+    closure = run_closure(dist.pop("engine"))
+    torch.cuda.empty_cache()
+
+    shapes = dict(full["largest_launch"])
+    shapes["fused_join_dedup"] = closure["largest_launch"]["fused_join_dedup"]
+    kernel_numbers = check_kernels(torch.device("cuda"), shapes)
 
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
     if args.profile:
         profile_run(program, dataset)
 
+    paths = {
+        "cmat": full["launches"],
+        "distributed": dist["launches"],
+        "distributed_apply": dist["apply_launches"],
+        "closure": closure["launches"],
+    }
     kernels_line = []
     for name in ops.KERNELS:
         num = kernel_numbers[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels_line.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": full["launches"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": num["max_abs_err"],
             "ms": num["ms"],
             "plain_ms": num["plain_ms"],
             "bound_ms": num["bound_ms"],
             "bound_by": num["bound_by"],
             "library_ms": num["library_ms"],
+            "library_call": LIBRARY_CALLS[name],
         })
     log("[total] done")
     print(json.dumps({"kernels": kernels_line}))

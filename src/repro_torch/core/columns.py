@@ -27,6 +27,7 @@ import torch
 
 from ..kernels import rle_expand
 from ..obs.memory import register_reporter, split_owned_backed, tensor_nbytes
+from .util import resolve_device
 
 __all__ = ["ColumnStore", "rle_encode"]
 
@@ -70,10 +71,11 @@ class _Concat:
 
 
 class ColumnStore:
-    """The mapping ``mu``: meta-constant id -> Leaf | Concat node."""
+    """The mapping ``mu``: meta-constant id -> Leaf | Concat node, on one
+    device (``device=None``: the card)."""
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None) -> None:
+        self.device = resolve_device(device)
         self._nodes: dict[int, object] = {}
         self._parents: dict[int, set[int]] = {}
         self._unfold_cache: dict[int, torch.Tensor] = {}

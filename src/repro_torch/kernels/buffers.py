@@ -1,17 +1,27 @@
-"""Per-predicate fact buffers with watermarks — the fused engine's dedup index.
+"""Per-predicate fact buffers with watermarks — sorted code indexes on a device.
 
-Facts are packed **int64** codes (arity 1: the id; arity 2:
-``(a << 32) | b``) kept sorted-unique in sentinel-padded power-of-two
-buffers on the engine's device, with a host ``count`` watermark.  The same
-layout serves the CPU (with the plain merge) and the card (with the
+Two modes, chosen by ``dtype``:
+
+* **int64** (the default; the fused engine's dedup index): packed codes
+  (arity 1: the id; arity 2: ``(a << 32) | b``), with the
+  ``DedupIndex``-compatible :meth:`seed` / :meth:`fresh_mask` surface.
+* **int32** (the reference's ``FactBuffers(device=True)``): the 16-bit-halves
+  pair codes of the distributed engine's ``pack_pairs``, folded in with
+  :meth:`merge` — for example a ``fused_join_dedup`` output.  The caller
+  packs; there is no row surface.
+
+Codes are kept sorted-unique in sentinel-padded power-of-two buffers on
+the buffers' device, with a host ``count`` watermark.  The same layout
+serves the CPU (with the plain merge) and the card (with the
 ``merge_sorted_unique`` kernel), so the CPU tests exercise the
 grow-before-merge logic the card runs.
 
 Invariants:
 
 1. ``front[:count]`` is strictly increasing; every slot at or beyond
-   ``count`` holds the sentinel (int64 max).
-2. ``count <= capacity``; capacity is a power of two, at least 128.
+   ``count`` holds the sentinel (the key type's max).
+2. ``count <= capacity``; capacity is a power of two, at least 128 (so
+   a multiple of 128, as the TPU merge requires).
 3. Growth happens *before* every merge: :meth:`merge` regrows whenever
    ``count + len(fresh)`` could exceed the capacity, so the merge never
    cuts a value off.
@@ -28,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..core.dedup import DedupIndex
-from ..core.util import first_occurrence_mask, sorted_member
+from ..core.util import first_occurrence_mask, resolve_device, sorted_member
 from ..obs import get_registry
 from ..obs.memory import register_reporter
 from .fused import merge_sorted_unique
@@ -37,7 +47,7 @@ __all__ = ["BIG", "FactBuffers"]
 
 _SCOPE = "kernels.buffers."
 
-#: pad sentinel: larger than any packed code
+#: pad sentinel of the int64 mode: larger than any packed code
 BIG = torch.iinfo(torch.int64).max
 
 _MIN_CAPACITY = 128
@@ -51,11 +61,16 @@ def _round_capacity(n: int) -> int:
 
 
 class FactBuffers:
-    """Sorted per-predicate fact code buffers on one device."""
+    """Sorted per-predicate fact code buffers on one device
+    (``device=None``: the card)."""
 
-    def __init__(self, device: torch.device | str = "cpu",
-                 initial_capacity: int = 1024):
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None,
+                 initial_capacity: int = 1024, dtype: torch.dtype = torch.int64):
+        if dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"FactBuffers: int32 or int64 codes, not {dtype}")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self._big = torch.iinfo(dtype).max
         self._initial_capacity = _round_capacity(initial_capacity)
         self._reg = get_registry()
         self.regrows = 0
@@ -70,11 +85,11 @@ class FactBuffers:
     # ------------------------------------------------------------------ #
     def occupied_bytes(self) -> int:
         """Bytes of live codes (below the watermarks)."""
-        return 8 * sum(self._count.values())
+        return self.dtype.itemsize * sum(self._count.values())
 
     def capacity_bytes(self) -> int:
         """Bytes allocated: both buffers of every predicate."""
-        return 16 * sum(int(b.shape[0]) for b in self._front.values())
+        return 2 * self.dtype.itemsize * sum(int(b.shape[0]) for b in self._front.values())
 
     def memory_report(self) -> dict[str, int]:
         occ = self.occupied_bytes()
@@ -90,9 +105,12 @@ class FactBuffers:
     # ------------------------------------------------------------------ #
     # the DedupIndex-compatible surface
     # ------------------------------------------------------------------ #
-    #: arity 1 packs to the id, arity 2 to ``(a << 32) | b``; wider rows
-    #: give None and the caller falls back
-    pack = staticmethod(DedupIndex.pack)
+    def pack(self, rows: torch.Tensor) -> torch.Tensor | None:
+        """int64 mode: arity 1 packs to the id, arity 2 to ``(a << 32) |
+        b``; wider rows give None and the caller falls back."""
+        if self.dtype != torch.int64:
+            raise RuntimeError("FactBuffers: rows are packed by the caller in int32 mode")
+        return DedupIndex.pack(rows)
 
     def seed(self, pred: str, rows: torch.Tensor) -> None:
         """Fold already-known facts in without producing a mask."""
@@ -122,7 +140,7 @@ class FactBuffers:
     def codes(self, pred: str) -> torch.Tensor:
         buf = self._front.get(pred)
         if buf is None:
-            return torch.zeros(0, dtype=torch.int64, device=self.device)
+            return torch.zeros(0, dtype=self.dtype, device=self.device)
         return buf[: self._count[pred]]
 
     def count(self, pred: str) -> int:
@@ -144,7 +162,7 @@ class FactBuffers:
         if old is not None and old.shape[0] >= need:
             return old
         cap = _round_capacity(need)
-        front = torch.full((cap,), BIG, dtype=torch.int64, device=self.device)
+        front = torch.full((cap,), self._big, dtype=self.dtype, device=self.device)
         if old is not None:
             front[: old.shape[0]] = old
             self.regrows += 1
@@ -156,10 +174,11 @@ class FactBuffers:
         return front
 
     def merge(self, pred: str, fresh: torch.Tensor) -> int:
-        """Merge an ascending block of codes (sentinel-padded or exact)
-        into ``pred``'s buffer through ``merge_sorted_unique``, after
-        growing it to fit.  Returns the number of genuinely new codes."""
-        fresh = fresh.to(device=self.device, dtype=torch.int64).contiguous()
+        """Merge an ascending block of codes (sentinel-padded or exact,
+        e.g. a ``fused_join_dedup`` output in int32 mode) into ``pred``'s
+        buffer through ``merge_sorted_unique``, after growing it to fit.
+        Returns the number of genuinely new codes."""
+        fresh = fresh.to(device=self.device, dtype=self.dtype).contiguous()
         count = self._count.get(pred, 0)
         front = self.ensure(pred, count + int(fresh.shape[0]))
         merged, cnt, n_new = merge_sorted_unique(

@@ -28,7 +28,10 @@ __all__ = ["BUILD_DIR", "KernelBuildError", "SOURCES", "build", "library"]
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 #: one shared library per source file
-SOURCES = ("sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique")
+SOURCES = (
+    "sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique",
+    "fused_join_dedup",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,7 +40,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 #: C entry points of each library (each exists with an ``_i32`` and an
-#: ``_i64`` suffix); the last argument of every one is the CUDA stream
+#: ``_i64`` suffix, unless ``KEY_TYPES`` names fewer); the last argument of
+#: every one is the CUDA stream
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "sorted_member": {"repro_sorted_member": (_P, _I, _P, _I, _P, _P)},
     "join_bounds": {"repro_join_bounds": (_P, _I, _P, _I, _P, _P, _P)},
@@ -46,7 +50,15 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "repro_merge_rank": (_P, _I, _P, _I, _P, _P, _P),
         "repro_merge_scatter": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
     },
+    "fused_join_dedup": {
+        "repro_fjd_count": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
+        "repro_fjd_emit": (
+            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+        ),
+    },
 }
+#: libraries built for fewer key types than both
+KEY_TYPES = {"fused_join_dedup": ("i32",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -77,7 +89,7 @@ def _lib_path(name: str) -> Path:
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_lib_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
-        for suffix in ("i32", "i64"):
+        for suffix in KEY_TYPES.get(name, ("i32", "i64")):
             f = getattr(lib, f"{fn}_{suffix}")
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int

@@ -1,15 +1,18 @@
-"""Sorted-buffer merge — the fused round tail's fold into ``FactBuffers``.
+"""Fused join-dedup and sorted-buffer merge — the two kernels of the
+TPU module ``repro/kernels/fused.py``.
 
-Port of ``repro/kernels/fused.py::merge_sorted_unique`` (``_merge_impl``,
-TPU body ``_merge_kernel``) as the hand-written CUDA kernels
-``csrc/merge_sorted_unique.cu``: a rank launch, a ``torch.cumsum`` of the
-keep flags, and a scatter launch.  The result goes to a second buffer of
-the same capacity (``out``), never over ``buf``; :class:`FactBuffers`
-holds such a pair per predicate and swaps them after each merge.
-
-``fused_join_dedup`` (the TPU module's other kernel) is not ported yet: no
-engine of the reference calls it, and its 16-bit pair pack cannot carry
-the dictionary ids of a full-size KB.
+* :func:`fused_join_dedup` ports ``fused_join_dedup`` (TPU body
+  ``_fused_join_dedup_kernel``) as ``csrc/fused_join_dedup.cu``: a count
+  call (spans and their scan, giving the exact pair total), one read of
+  that total, and an emit call (gather and pack, sort, unique, compaction).
+  Its codes are the 16-bit-halves pairs of the distributed engine's
+  ``pack_pairs``; its output folds into an int32 :class:`FactBuffers`.
+* :func:`merge_sorted_unique` ports ``merge_sorted_unique``
+  (``_merge_impl``, TPU body ``_merge_kernel``) as
+  ``csrc/merge_sorted_unique.cu``: a rank launch, a ``torch.cumsum`` of the
+  keep flags, and a scatter launch.  The result goes to a second buffer of
+  the same capacity (``out``), never over ``buf``; :class:`FactBuffers`
+  holds such a pair per predicate and swaps them after each merge.
 """
 
 from __future__ import annotations
@@ -18,7 +21,79 @@ import torch
 
 from . import ops, ref
 
-__all__ = ["merge_sorted_unique"]
+__all__ = ["fused_join_dedup", "merge_sorted_unique"]
+
+#: rows per tile of the kernel's scan (one int64 tile sum each)
+_SCAN_TILE = 1024
+#: spans are int32, as on the TPU
+_MAX_RIGHT = 2**31 - 1
+
+
+def fused_join_dedup(l_keys: torch.Tensor, l_payload: torch.Tensor,
+                     r_keys_sorted: torch.Tensor, r_payload: torch.Tensor,
+                     capacity: int):
+    """Join ``l`` against sorted ``r`` on key and return the deduplicated
+    packed pairs ``(l_payload << 16) | (r_payload & 0xFFFF)``, all int32.
+
+    Returns ``(out, count, total)``: ``out`` is ``(capacity,)`` int32,
+    sorted unique, padded with int32 max; ``count`` the number of unique
+    codes kept (int32, shape ``(1,)``); ``total`` the exact number of
+    pairs before the cut and the dedup, read once to the host.  When
+    ``total > capacity`` only the first ``capacity`` pairs in left-major
+    order were kept: regrow ``capacity`` to at least ``total`` and call
+    again.  CPU tensors take the plain version; any other device launches
+    the kernel or raises."""
+    ops.check_keys("fused_join_dedup", l_keys, l_payload, r_keys_sorted, r_payload)
+    if l_keys.dtype != torch.int32:
+        raise TypeError("fused_join_dedup: keys and payloads must be int32")
+    n, m = l_keys.shape[0], r_keys_sorted.shape[0]
+    if l_payload.shape[0] != n or r_payload.shape[0] != m:
+        raise ValueError("fused_join_dedup: payloads must match their keys in length")
+    if capacity < 0:
+        raise ValueError(f"fused_join_dedup: capacity {capacity} < 0")
+    if m > _MAX_RIGHT:
+        raise ValueError(f"fused_join_dedup: {m} right rows overflow int32 spans")
+    if l_keys.device.type == "cpu":
+        return ref.fused_join_dedup(l_keys, l_payload, r_keys_sorted, r_payload, capacity)
+    dev = l_keys.device
+    out = torch.empty(capacity, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n == 0 or m == 0 or capacity == 0:
+        out.fill_(ref.sentinel(torch.int32))
+        return out, count, 0
+
+    def i32(k):
+        return torch.empty(k, dtype=torch.int32, device=dev)
+
+    def i64(k):
+        return torch.empty(k, dtype=torch.int64, device=dev)
+
+    # scratch stays referenced until both calls are queued: a tensor freed
+    # earlier could hand its memory to the next allocation
+    lo, cnt, offs, sums, total_t = i32(n), i64(n), i64(n), i64(-(-n // _SCAN_TILE)), i64(1)
+    ops.launch(
+        "fused_join_dedup", "repro_fjd_count", torch.int32, dev,
+        l_keys.data_ptr(), n, r_keys_sorted.data_ptr(), m, lo.data_ptr(),
+        cnt.data_ptr(), offs.data_ptr(), sums.data_ptr(), total_t.data_ptr(),
+    )
+    total = int(total_t.item())
+    k = min(total, capacity)
+    # the pairs emitted are part of the launch's size: a join of two large
+    # sides that matches nothing is not the largest launch
+    ops.note_launch("fused_join_dedup", n=n, m=m, capacity=capacity, pairs=k)
+    if k == 0:
+        out.fill_(ref.sentinel(torch.int32))
+        return out, count, total
+    keys, tmp, flags, pos = i32(k), i32(k), i32(k), i64(k)
+    sums, n_unique = i64(-(-k // _SCAN_TILE)), i64(1)
+    ops.launch(
+        "fused_join_dedup", "repro_fjd_emit", torch.int32, dev,
+        l_payload.data_ptr(), r_payload.data_ptr(), lo.data_ptr(),
+        offs.data_ptr(), n, k, keys.data_ptr(), tmp.data_ptr(),
+        flags.data_ptr(), pos.data_ptr(), sums.data_ptr(),
+        n_unique.data_ptr(), out.data_ptr(), capacity, count.data_ptr(),
+    )
+    return out, count, total
 
 
 def merge_sorted_unique(buf: torch.Tensor, fresh: torch.Tensor,

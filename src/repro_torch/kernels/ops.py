@@ -27,7 +27,10 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-KERNELS = ("sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique")
+KERNELS = (
+    "sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique",
+    "fused_join_dedup",
+)
 
 _KEY_TYPES = {torch.int32: "i32", torch.int64: "i64"}
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -3,10 +3,11 @@
 * :func:`span` — nested host-side tracing spans (free when disabled);
 * :func:`get_registry` — named counters/gauges/histograms;
 * :func:`register_reporter` — weak byte reporters (:mod:`.memory`);
-* :func:`publish_materialisation` — stats dataclass -> registry.
+* :func:`publish_materialisation`, :func:`publish_distributed` — stats
+  dataclass -> registry.
 """
 
-from .adapters import publish_materialisation
+from .adapters import publish_distributed, publish_materialisation
 from .memory import MemoryAccountant, get_accountant, register_reporter
 from .metrics import (
     Counter,
@@ -29,6 +30,7 @@ __all__ = [
     "get_registry",
     "get_tracer",
     "instant",
+    "publish_distributed",
     "publish_materialisation",
     "register_reporter",
     "set_registry",

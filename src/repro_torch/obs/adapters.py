@@ -1,9 +1,10 @@
-"""Publish a materialisation's stats dataclass into the metrics registry.
+"""Publish an engine's stats dataclass into the metrics registry.
 
 Counters are incremented by the published value (a registry scope
 accumulates across runs until its owner resets it); levels are gauges and
 overwrite.  Field names are kept under the prefix: ``cmat.rounds`` is
-``MaterialisationStats.rounds``.
+``MaterialisationStats.rounds``, ``dist.rows_joined`` is
+``DistributedStats.rows_joined``.
 """
 
 from __future__ import annotations
@@ -11,8 +12,10 @@ from __future__ import annotations
 from .metrics import MetricsRegistry, get_registry
 
 __all__ = [
+    "DISTRIBUTED_COUNTERS",
     "MATERIALISATION_COUNTERS",
     "MATERIALISATION_GAUGES",
+    "publish_distributed",
     "publish_materialisation",
 ]
 
@@ -31,6 +34,21 @@ MATERIALISATION_COUNTERS = (
 
 #: MaterialisationStats fields that are levels (gauge semantics)
 MATERIALISATION_GAUGES = ("n_strata", "n_meta_facts", "n_facts")
+
+
+#: DistributedStats extras beyond the materialisation base
+DISTRIBUTED_COUNTERS = (
+    "rows_joined",
+    "exchanges",
+    "exchanges_skipped",
+    "exchange_regrows",
+    "n_del_explicit",
+    "n_add_explicit",
+    "n_overdeleted",
+    "n_rederived",
+    "n_deleted",
+    "n_inserted",
+)
 
 
 def _publish_rule_scope(reg: MetricsRegistry, stats) -> None:
@@ -60,3 +78,16 @@ def publish_materialisation(
     # plan-cache counters are cumulative on the cache object: gauges
     for key, val in (stats.plan_cache or {}).items():
         reg.gauge(f"{prefix}.plan_cache.{key}").set(val)
+
+
+def publish_distributed(
+    stats, registry: MetricsRegistry | None = None, prefix: str = "dist"
+) -> None:
+    """Publish a :class:`~repro_torch.core.distributed.DistributedStats`
+    (after ``materialise`` and after every ``apply``): the materialisation
+    fields, then the exchange and maintenance counters and the epoch."""
+    reg = registry if registry is not None else get_registry()
+    publish_materialisation(stats, reg, prefix)
+    for f in DISTRIBUTED_COUNTERS:
+        reg.counter(f"{prefix}.{f}").inc(getattr(stats, f))
+    reg.gauge(f"{prefix}.epoch").set(stats.epoch)

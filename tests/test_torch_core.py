@@ -28,6 +28,7 @@ from repro_torch.core import joins as tjoins
 from repro_torch.core import util as tutil
 from repro_torch.core.metafacts import flat_repr_size as t_flat_repr_size
 from repro_torch.kernels.buffers import FactBuffers
+from repro_torch.obs import get_registry
 from repro.kernels.buffers import FactBuffers as JFactBuffers
 
 
@@ -381,3 +382,73 @@ def test_fact_buffers_steady_state_allocates_nothing():
     assert buf.merge("P", torch.arange(500, 2000, dtype=torch.int64)) == 1500
     assert buf.regrows == 1 and buf.capacity("P") == 2048
     assert_array_equal(buf.codes("P").numpy(), np.arange(2000))
+
+
+# --------------------------------------------------------------------- #
+# FactBuffers, int32 mode: the reference's FactBuffers(device=True)
+# --------------------------------------------------------------------- #
+def _fresh32(rng, n):
+    return np.unique(rng.integers(0, 2**20, size=n).astype(np.int32))
+
+
+def test_fact_buffers_int32_steady_state_matches_reference():
+    """After the first allocation, merges that fit allocate nothing (the
+    buffer pair is swapped, standing in for the reference's donation),
+    and every merge gives the reference's ``n_new`` and codes."""
+    reg = get_registry()
+    reg.reset("kernels.")
+    j_buf = JFactBuffers(device=True, donate=False, initial_capacity=1024)
+    t_buf = FactBuffers("cpu", initial_capacity=1024, dtype=torch.int32)
+    j_buf.ensure("P", 1024)
+    t_buf.ensure("P", 1024)
+    ptrs = {t_buf._front["P"].data_ptr(), t_buf._back["P"].data_ptr()}
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        fresh = _fresh32(rng, 50)
+        assert t_buf.merge("P", _t(fresh)) == j_buf.merge("P", fresh)
+        assert_array_equal(t_buf.codes("P").numpy(), j_buf.codes("P"))
+    snap = reg.snapshot("kernels.")
+    assert snap["kernels.buffers.allocations"] == 1
+    assert snap["kernels.buffers.merges"] == 6
+    assert {t_buf._front["P"].data_ptr(), t_buf._back["P"].data_ptr()} == ptrs
+    front, n = t_buf._front["P"], t_buf.count("P")
+    assert front.dtype == torch.int32 and t_buf.capacity("P") == j_buf.capacity("P")
+    assert (front[n:] == np.iinfo(np.int32).max).all()
+    assert t_buf.occupied_bytes() == j_buf.occupied_bytes()
+
+
+def test_fact_buffers_int32_regrow_before_merge_matches_reference():
+    j_buf = JFactBuffers(device=True, donate=False, initial_capacity=128)
+    t_buf = FactBuffers("cpu", initial_capacity=128, dtype=torch.int32)
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        fresh = _fresh32(rng, 100)
+        assert t_buf.merge("P", _t(fresh)) == j_buf.merge("P", fresh)
+    assert_array_equal(t_buf.codes("P").numpy(), j_buf.codes("P"))
+    assert t_buf.capacity("P") == j_buf.capacity("P") >= t_buf.count("P")
+    assert t_buf.regrows == j_buf.regrows >= 1
+    with pytest.raises(RuntimeError, match="int32"):
+        t_buf.seed("Q", _t(np.zeros((2, 2), np.int64)))
+
+
+def test_fact_buffers_int32_folds_fused_join_dedup_output():
+    """A ``fused_join_dedup`` output (sentinel-padded) merges as the
+    reference merges its Pallas kernel's output."""
+    from repro.kernels.fused import fused_join_dedup as j_fused_join_dedup
+    from repro_torch.kernels import fused_join_dedup
+
+    rng = np.random.default_rng(4)
+    l_keys = rng.integers(0, 40, size=60).astype(np.int32)
+    r_keys = np.sort(rng.integers(0, 40, size=50).astype(np.int32))
+    l_pay = rng.integers(0, 2**15, size=60).astype(np.int32)
+    r_pay = rng.integers(0, 2**15, size=50).astype(np.int32)
+    j_out, _, _ = j_fused_join_dedup(l_keys, l_pay, r_keys, r_pay, capacity=256, interpret=True)
+    t_out, t_cnt, _ = fused_join_dedup(*map(_t, (l_keys, l_pay, r_keys, r_pay)), 256)
+    j_buf = JFactBuffers(device=True, donate=False, initial_capacity=128)
+    t_buf = FactBuffers("cpu", initial_capacity=128, dtype=torch.int32)
+    seed = _fresh32(rng, 30)
+    j_buf.merge("H", seed)
+    t_buf.merge("H", _t(seed))
+    assert t_buf.merge("H", t_out) == j_buf.merge("H", j_out) == int(t_cnt[0])
+    assert_array_equal(t_buf.codes("H").numpy(), j_buf.codes("H"))
+    assert t_buf.merge("H", t_out) == 0  # folding it again adds nothing

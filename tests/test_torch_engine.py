@@ -19,7 +19,9 @@ from numpy.testing import assert_array_equal
 from repro.core import CMatEngine as JCMatEngine
 from repro.core.flat import flat_seminaive as j_flat_seminaive
 from repro.core.generators import bipartite, chain, lubm_like, paper_example, star
-from repro_torch.core import CMatEngine, FlatEngine, flat_seminaive
+from repro_torch.core import CMatEngine, ColumnStore, FlatEngine, flat_seminaive
+from repro_torch.core.distributed import DistributedEngine
+from repro_torch.kernels.buffers import FactBuffers
 
 WORKLOADS = [
     ("paper", lambda: paper_example(n=30, m=20)),
@@ -162,8 +164,13 @@ def test_port_imports_neither_jax_nor_reference():
         lambda p, d: CMatEngine(p),
         lambda p, d: CMatEngine(p, fused=True),
         lambda p, d: flat_seminaive(p, d),
+        lambda p, d: DistributedEngine(p),
+        lambda p, d: ColumnStore(),
+        lambda p, d: FactBuffers(),
+        lambda p, d: FactBuffers(dtype=torch.int32),
     ],
-    ids=["cmat", "cmat-fused", "flat_seminaive"],
+    ids=["cmat", "cmat-fused", "flat_seminaive", "distributed", "column-store",
+         "fact-buffers", "fact-buffers-int32"],
 )
 def test_entry_points_default_to_cuda_and_raise_without(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -20,12 +20,14 @@ from numpy.testing import assert_array_equal
 
 from repro.core import util as jutil
 from repro.kernels import ref as jref
+from repro.kernels.fused import fused_join_dedup as j_fused_join_dedup
 from repro.kernels.fused import merge_sorted_unique as j_merge
 from repro.kernels.join_bounds import join_bounds as j_join_bounds
 from repro.kernels.rle_expand import rle_expand as j_rle_expand
 from repro.kernels.sorted_member import sorted_member as j_sorted_member
 from repro_torch.kernels import (
     build,
+    fused_join_dedup,
     join_bounds,
     merge_sorted_unique,
     ops,
@@ -207,6 +209,97 @@ def test_merge_sorted_unique_int64_into_out_vs_util():
         merge_sorted_unique(tbuf, _t(fresh), out=tbuf)
 
 
+def _fjd_case(rng, capacity, big_left=False):
+    """The seeded join of ``tests/test_fused_kernels.py``: small key range,
+    15-bit left and 16-bit right payloads; optionally some left keys set
+    to the int32 sentinel (the TPU kernel masks them out)."""
+    n, m = int(rng.integers(0, 80)), int(rng.integers(0, 80))
+    l_keys = rng.integers(0, 50, size=n).astype(np.int32)
+    if big_left and n:
+        l_keys[rng.random(n) < 0.3] = BIG32
+    r_keys = np.sort(rng.integers(0, 50, size=m).astype(np.int32))
+    l_pay = rng.integers(0, 2**15, size=n).astype(np.int32)
+    r_pay = rng.integers(0, 2**16, size=m).astype(np.int32)
+    return l_keys, l_pay, r_keys, r_pay
+
+
+def _fjd_port(args, capacity):
+    out, cnt, tot = fused_join_dedup(*map(_t, args), capacity)
+    assert out.dtype == cnt.dtype == torch.int32 and out.shape == (capacity,)
+    return out.numpy(), int(cnt[0]), tot
+
+
+@pytest.mark.parametrize("capacity", [1, 7, 64, 256, 1000])
+def test_fused_join_dedup_vs_pallas(capacity):
+    """Seeded trials with and without sentinel left keys: each against the
+    reference's oracle where it applies, the first six also against the
+    Pallas kernel in interpret mode (about 0.4 s a call there)."""
+    rng = np.random.default_rng(capacity)
+    for trial in range(20):
+        args = _fjd_case(rng, capacity, big_left=trial % 2 == 1)
+        out, cnt, tot = _fjd_port(args, capacity)
+        if trial % 2 == 0:  # the numpy oracle does not mask sentinel keys
+            r_out, r_cnt, r_tot = jref.fused_join_dedup_ref(*args, capacity=capacity)
+            assert (cnt, tot) == (r_cnt, r_tot)
+            assert_array_equal(out, r_out)
+        if trial < 6:
+            j_out, j_cnt, j_tot = j_fused_join_dedup(*args, capacity=capacity, interpret=True)
+            assert (cnt, tot) == (int(j_cnt[0]), int(j_tot[0]))
+            assert_array_equal(out, np.asarray(j_out))
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["empty-left", "empty-right", "zero-capacity", "all-duplicates",
+     "cut-then-regrow", "sentinel-left-keys", "wide-payloads"],
+)
+def test_fused_join_dedup_edges_vs_pallas(case):
+    rng = np.random.default_rng(17)
+    some = np.asarray([1, 2, 3], np.int32)
+    empty = np.zeros(0, np.int32)
+    capacity = 64
+    if case == "empty-left":
+        args = (empty, empty, some, some)
+    elif case == "empty-right":
+        args = (some, some, empty, empty)
+    elif case == "zero-capacity":
+        args, capacity = (some, some, some, some), 0
+    elif case == "all-duplicates":  # every match packs to one code
+        args = (np.full(37, 5, np.int32), np.full(37, 9, np.int32),
+                np.full(11, 5, np.int32), np.full(11, 3, np.int32))
+        capacity = 512
+    elif case == "cut-then-regrow":  # 20 x 20 pairs cut at 64
+        args = (np.zeros(20, np.int32), rng.integers(0, 2**15, 20).astype(np.int32),
+                np.zeros(20, np.int32), rng.integers(0, 2**16, 20).astype(np.int32))
+    elif case == "sentinel-left-keys":
+        l = np.asarray([BIG32, 4, BIG32, 4], np.int32)
+        r = np.asarray([4, BIG32, BIG32], np.int32)
+        args = (l, np.arange(4, dtype=np.int32), r, np.arange(3, dtype=np.int32))
+    else:  # payloads past 15 bits wrap as int32 arithmetic does
+        args = (np.zeros(30, np.int32), rng.integers(2**15, 2**16, 30).astype(np.int32),
+                np.zeros(3, np.int32), rng.integers(0, 2**20, 3).astype(np.int32))
+    out, cnt, tot = _fjd_port(args, capacity)
+    j_out, j_cnt, j_tot = j_fused_join_dedup(*args, capacity=capacity, interpret=True)
+    assert (cnt, tot) == (int(j_cnt[0]), int(j_tot[0]))
+    assert_array_equal(out, np.asarray(j_out))
+    if case == "all-duplicates":
+        assert (cnt, tot, int(out[0])) == (1, 37 * 11, (9 << 16) | 3)
+    if case == "cut-then-regrow":
+        assert tot == 400 > capacity
+        out, cnt, tot = _fjd_port(args, 512)
+        want = np.unique((args[1].astype(np.int64)[:, None] << 16) | args[3][None, :])
+        assert (cnt, tot) == (want.size, 400)
+        assert_array_equal(out[: want.size], want)
+    if case in ("empty-left", "empty-right", "zero-capacity"):
+        assert (cnt, tot) == (0, 0) and (out == BIG32).all()
+
+
+def test_fused_join_dedup_rejects_int64():
+    x = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(TypeError, match="int32"):
+        fused_join_dedup(x, x, x, x, 8)
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -214,8 +307,10 @@ def test_merge_sorted_unique_int64_into_out_vs_util():
         lambda x: join_bounds(x, x),
         lambda x: rle_expand(x, x, 4),
         lambda x: merge_sorted_unique(x, x),
+        lambda x: fused_join_dedup(*[x.to(torch.int32)] * 4, 16),
     ],
-    ids=["sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique"],
+    ids=["sorted_member", "join_bounds", "rle_expand", "merge_sorted_unique",
+         "fused_join_dedup"],
 )
 def test_wrapper_without_cuda_build_raises(call):
     """Off the CPU a wrapper launches its kernel or raises: here there is
@@ -242,6 +337,8 @@ def test_cpu_calls_do_not_count():
     join_bounds(a, a)
     rle_expand(a, torch.ones(10, dtype=torch.int64), 10)
     merge_sorted_unique(torch.full((128,), BIG64), a)
+    a32 = a.to(torch.int32)
+    fused_join_dedup(a32, a32, a32, a32, 16)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 

@@ -71,3 +71,50 @@ def test_timed_case_has_the_metered_lengths(smoke, name, dtype):
         assert not bool(torch.isin(fresh, occupied).any())
         want = (sh["count"] + sh["fresh"] + sh["cap"]) * size + 16
     assert smoke._bytes(name, args, size) == want
+    assert smoke.LIBRARY_CALLS[name].startswith("torch.")
+    smoke._library_call(name, args)()  # the yardstick runs on these inputs
+
+
+@pytest.mark.parametrize("m", [40, 40_000])
+def test_join_cases_have_the_metered_lengths(smoke, m):
+    """``fused_join_dedup``'s timed case has the closure's largest launch
+    lengths (its right side may hold more rows than 15-bit ids); every
+    case runs through the wrapper (its plain version here) and the
+    yardstick's packed pairs are the pairs the join enumerates."""
+    from repro_torch.kernels import fused_join_dedup
+
+    shape = {"n": 900, "m": m, "capacity": 1024, "pairs": 900}
+    cases = smoke._cases("fused_join_dedup", shape, torch.int32, torch.device("cpu"),
+                         np.random.default_rng(5))
+    (args,) = [a for _, a, timed in cases if timed]
+    l_keys, l_pay, r_keys, r_pay, cap = args
+    assert (l_keys.shape[0], r_keys.shape[0], cap) == (900, m, 1024)
+    assert torch.equal(r_keys, torch.unique(r_keys))  # each right key once
+    assert smoke._bytes("fused_join_dedup", args, 4) == (2 * 900 + 2 * m + 1024) * 4
+    for label, case, _ in cases:
+        out, count, total = fused_join_dedup(*case)
+        assert out.shape == (case[4],) and int(count[0]) <= min(total, case[4]), label
+    out, count, total = fused_join_dedup(*args)
+    assert total == 900  # every left key matches one right row
+    codes, n_pairs = ref.join_pairs16(*args)
+    assert n_pairs == total and codes.shape == (900,)
+    assert torch.equal(smoke._library_call("fused_join_dedup", args)(), out[: int(count[0])])
+    assert "sort-and-dedup half only" in smoke.LIBRARY_CALLS["fused_join_dedup"]
+
+
+@pytest.mark.parametrize("pairs", [0, 450, 900, 2_700])
+def test_join_cases_have_the_metered_pairs(smoke, pairs):
+    """The timed ``fused_join_dedup`` case enumerates the pair count of
+    the metered launch, which its cost grows with, not only its lengths."""
+    from repro_torch.kernels import fused_join_dedup
+
+    shape = {"n": 900, "m": 40, "capacity": 4096, "pairs": pairs}
+    cases = smoke._cases("fused_join_dedup", shape, torch.int32, torch.device("cpu"),
+                         np.random.default_rng(6))
+    (args,) = [a for _, a, timed in cases if timed]
+    assert (args[0].shape[0], args[2].shape[0]) == (900, 40)
+    assert fused_join_dedup(*args)[2] == pairs
+    # a launch cut at a smaller capacity emitted fewer pairs than these
+    with pytest.raises(AssertionError, match="pairs"):
+        smoke._cases("fused_join_dedup", dict(shape, pairs=pairs + 1, capacity=pairs),
+                     torch.int32, torch.device("cpu"), np.random.default_rng(6))
