@@ -35,8 +35,17 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        card (int32 and int64; ``fused_join_dedup`` int32
                        only): seeded inputs at the operand lengths of its
                        largest launch on the main path (read from the launch
-                       meter) plus edge cases, exact equality; kernel, plain
-                       and library-call times at those lengths;
+                       meter) plus edge cases, exact equality.  At those
+                       lengths (in int64; ``sorted_member`` and
+                       ``rle_expand`` in both key types, ``rle_expand`` also
+                       with one run holding 90 % of the output,
+                       ``sorted_member`` also at the distributed ``apply``'s
+                       largest launch in int32): kernel and library call
+                       timed in alternating turns (kernel, library, library,
+                       kernel, five times; medians of CUDA-event means), the
+                       device-only time of each from ``torch.profiler``, the
+                       kernel's host time per call, the plain version's
+                       time and the bytes bound;
 8. syncs             — the phase-3 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
 9. profile           — only with ``--profile``: one more load and
@@ -59,6 +68,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -109,7 +119,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean time of ``fn`` over ``reps`` calls between two CUDA events:
+    the card's time, or the host's where its launches cannot keep up."""
     import torch
 
     for _ in range(warmup):
@@ -123,6 +134,50 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternating_ms(kernel_fn, library_fn, rounds: int = 5) -> tuple[float, float]:
+    """Median :func:`cuda_ms` of the kernel and of the library call, timed
+    in turns — kernel, library, library, kernel — ``rounds`` times."""
+    k, lib = [], []
+    for _ in range(rounds):
+        k.append(cuda_ms(kernel_fn))
+        lib += [cuda_ms(library_fn), cuda_ms(library_fn)]
+        k.append(cuda_ms(kernel_fn))
+    return statistics.median(k), statistics.median(lib)
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time of one call of ``fn``: the wall clock of ``reps`` calls
+    before the closing synchronisation (enqueue only), over ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
+
+
+def device_ms(fn, reps: int = 20) -> float | None:
+    """Device time of one call of ``fn`` from ``torch.profiler``: the self
+    device time of every kernel, copy and set the card ran over ``reps``
+    calls, over ``reps``; ``None`` when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us else None
 
 
 # --------------------------------------------------------------------- #
@@ -170,24 +225,65 @@ def _cases(name, shape, dtype, dev, rng):
         a = a[torch.randperm(n, device=dev)]
         small_b = sorted_t(_distinct(rng, 100, 1000))
         small_a = t(rng.integers(0, 1000, size=300))
-        return [
+        cases = [
             ("full", (a, b), True),
             ("empty-a", (empty, small_b), False),
             ("empty-b", (small_a, empty), False),
             ("sentinel-padding", (pad(small_a, 64), pad(small_b, 29)), False),
             ("all-sentinel", (pad(empty, 50), pad(empty, 7)), False),
         ]
+        if name == "sorted_member":
+            # m = 1; duplicates in b; sentinel padding after a long b (one
+            # gap across almost every bucket); n not a multiple of the four
+            # probes a thread takes; operands that do not start on a
+            # 16-byte boundary; few probes into a long b (few, wide
+            # buckets); two far clusters of keys with probes between them
+            # (buckets whose starts the table kernel skips)
+            dup_b = sorted_t(rng.integers(0, 3000, size=200_000))
+            clusters = np.concatenate([np.arange(5000), hi - 5000 + np.arange(5000)])
+            cases += [
+                ("m-1", (small_a, small_b[50:51].contiguous()), False),
+                ("duplicates-in-b", (t(rng.integers(0, 3100, size=20_003)), dup_b), False),
+                ("sentinel-padding-long-b", (pad(t(rng.integers(0, 3100, size=20_000)), 64),
+                                             pad(dup_b, 5000)), False),
+                ("n-ragged", (small_a[:299].contiguous(), small_b), False),
+                ("unaligned-views", (small_a[2:], small_b[3:]), False),
+                ("few-probes", (small_a[:50].contiguous(), dup_b), False),
+                ("few-probes-sentinel", (pad(small_a[:20].contiguous(), 5), pad(dup_b, 5000)),
+                 False),
+                ("clustered-keys", (t(np.concatenate([clusters[::7], rng.integers(0, hi, 2000)])),
+                                    t(clusters)), False),
+            ]
+        return cases
     if name == "rle_expand":
-        r = shape["runs"]
+        r, total = shape["runs"], shape["total"]
         vals = sorted_t(rng.integers(0, hi, size=r))
-        counts = torch.as_tensor(rng.multinomial(shape["total"], [1 / r] * r)).to(dev)
+        counts = torch.as_tensor(rng.multinomial(total, [1 / r] * r)).to(dev)
+        # one run holds 90 % of total, the rest spread evenly: the skewed
+        # pair enumeration of a join key matched by most pairs
+        heavy = (total * 9 + 9) // 10
+        skew = rng.multinomial(total - heavy, [1 / r] * r)
+        skew[r // 2] += heavy
         small_v = t(rng.integers(0, 1000, size=50))
         small_c = torch.as_tensor(rng.integers(0, 5, size=50)).to(dev)
+        # zero-length stretches at the start, in the middle and at the end
+        zc = np.zeros(3000, dtype=np.int64)
+        zc[700:760] = rng.integers(1, 40, size=60)
+        zc[2000] = 5000
+        zv = t(rng.integers(0, hi, size=3000))
+        # int32 counts whose total is odd: the tail tile ends mid-vector
+        ragged = torch.full((50,), 163, dtype=torch.int32, device=dev)
+        ragged[-1] = 164
         return [
-            ("full", (vals, counts, shape["total"]), True),
+            ("full", (vals, counts, total), True),
+            ("skewed", (vals, torch.as_tensor(skew).to(dev), total), True),
             ("zero-runs", (small_v, small_c, int(small_c.sum())), False),
             ("one-run", (small_v[:1], small_c[:1] + 7, int(small_c[0]) + 7), False),
             ("empty", (empty, empty.to(torch.int64), 0), False),
+            ("zero-stretches", (zv, torch.as_tensor(zc).to(dev), int(zc.sum())), False),
+            ("one-run-many-tiles", (small_v[:3], torch.tensor([2, 20_001, 1], device=dev),
+                                    20_004), False),
+            ("ragged-tail", (small_v, ragged, 50 * 163 + 1), False),
         ]
     # merge_sorted_unique: ``count`` codes already buffered, ``fresh``
     # distinct codes disjoint from them, as the fused tail's survivors are
@@ -332,9 +428,62 @@ def _library_call(name, args):
     return lambda: torch.unique(torch.cat([buf, fresh]))
 
 
-def check_kernels(dev, shapes: dict[str, dict[str, int]]) -> dict[str, dict]:
+#: kernels timed in both key types (the others in their main-path type)
+BOTH_KEY_TYPES = ("sorted_member", "rle_expand")
+
+
+def _check_equal(name, label, dtype, kernel, plain, args) -> int:
+    """Hold one kernel call against its plain version exactly; returns
+    the largest absolute difference (0)."""
+    import torch
+
+    got = _as_list(kernel(*args))
+    want = _as_list(plain(*args))
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        if not isinstance(g, torch.Tensor):  # a host total
+            if g != w:
+                raise AssertionError(f"{name} {dtype} {label}: kernel total {g} != plain {w}")
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name} {dtype} {label}: kernel != plain version")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
+    return err
+
+
+def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
+    """Every time of one timed case: kernel and library call in
+    alternating turns (event-timed medians), their device-only times under
+    the profiler, the kernel's host time per call, the plain version's
+    time, and the bytes bound of these inputs."""
+    library = _library_call(name, args)
+    ms, library_ms = alternating_ms(lambda: kernel(*args), library)
+    entry = {
+        "case": label,
+        "dtype": str(dtype)[6:],
+        "shape": dict(shape),
+        "ms": ms,
+        "library_ms": library_ms,
+        "device_ms": device_ms(lambda: kernel(*args)),
+        "library_device_ms": device_ms(library),
+        "host_ms": host_ms(lambda: kernel(*args)),
+        "plain_ms": cuda_ms(lambda: plain(*args)),
+        "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+    log(f"[kernels] {name} {entry['dtype']} {label} {shape}: {entry}")
+    return entry
+
+
+def check_kernels(dev, shapes: dict[str, dict[str, int]],
+                  extra: dict[str, list] | None = None) -> dict[str, dict]:
     """Every kernel against its plain version; ``shapes`` are the operand
-    lengths of each kernel's largest launch on the full-size run."""
+    lengths of each kernel's largest launch on the full-size run, and
+    ``extra`` maps a kernel to more ``(label, shape, dtypes)`` launches to
+    time (the ``full`` case of :func:`_cases` at that shape)."""
     import torch
 
     from repro_torch import kernels
@@ -347,47 +496,32 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]]) -> dict[str, dict]:
         "merge_sorted_unique": (kernels.merge_sorted_unique, ref.merge_sorted_unique),
         "fused_join_dedup": (kernels.fused_join_dedup, ref.fused_join_dedup),
     }
+    extra = extra or {}
     results = {}
     for name, (kernel, plain) in wrappers.items():
         err = 0
-        entry = {}
+        timings = []
         # fused_join_dedup exists for the TPU's int32 codes only; the others
-        # are timed in int64, the fused engine's key type
+        # are timed in int64, the fused engine's key type, and two of them
+        # in int32 as well
         dtypes = (torch.int32,) if name == "fused_join_dedup" else (torch.int32, torch.int64)
         for dtype in dtypes:
-            rng = np.random.default_rng(
-                [ops.KERNELS.index(name), dtype.itemsize]
-            )
+            rng = np.random.default_rng([ops.KERNELS.index(name), dtype.itemsize])
             for label, args, timed in _cases(name, shapes[name], dtype, dev, rng):
-                got = _as_list(kernel(*args))
-                want = _as_list(plain(*args))
-                torch.cuda.synchronize()
-                for g, w in zip(got, want):
-                    if not isinstance(g, torch.Tensor):  # a host total
-                        if g != w:
-                            raise AssertionError(
-                                f"{name} {dtype} {label}: kernel total {g} != plain {w}"
-                            )
-                        continue
-                    if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
-                        raise AssertionError(
-                            f"{name} {dtype} {label}: kernel != plain version"
-                        )
-                    if g.numel():
-                        diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
-                        err = max(err, int(diff))
-                log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
-                if timed and dtype == dtypes[-1]:
-                    entry = {
-                        "ms": cuda_ms(lambda: kernel(*args)),
-                        "plain_ms": cuda_ms(lambda: plain(*args)),
-                        "library_ms": cuda_ms(_library_call(name, args)),
-                        "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BYTES_PER_S * 1e3,
-                        "bound_by": "bytes",
-                    }
-                    log(f"[kernels] {name} {str(dtype)[6:]} full {shapes[name]}: {entry}")
-        entry["max_abs_err"] = err
-        results[name] = entry
+                err = max(err, _check_equal(name, label, dtype, kernel, plain, args))
+                if timed and (dtype == dtypes[-1] or name in BOTH_KEY_TYPES):
+                    timings.append(_time_case(name, label, dtype, shapes[name],
+                                              kernel, plain, args))
+        for label, shape, extra_dtypes in extra.get(name, ()):
+            for dtype in extra_dtypes:
+                rng = np.random.default_rng([ops.KERNELS.index(name), dtype.itemsize, 1])
+                (args,) = [a for lab, a, _ in _cases(name, shape, dtype, dev, rng) if lab == "full"]
+                err = max(err, _check_equal(name, label, dtype, kernel, plain, args))
+                timings.append(_time_case(name, label, dtype, shape, kernel, plain, args))
+        # the line's own numbers: the main-path launch in its key type
+        (main,) = [t for t in timings
+                   if t["case"] == "full" and t["dtype"] == str(dtypes[-1])[6:]]
+        results[name] = dict(main, max_abs_err=err, timings=timings)
     return results
 
 
@@ -560,6 +694,7 @@ def run_full_distributed() -> dict:
     torch.cuda.synchronize()
     t_mat = time.perf_counter() - t0
     launches = ops.launch_counts()
+    log(f"[full-distributed] largest launch per kernel {ops.largest_launches()}")
     n_facts = sum(int(r.shape[0]) for r in facts.values())
     got = {k: getattr(eng.stats, k) for k in DIST_EXPECTED}
     log(f"[full-distributed] materialise {t_mat:.3f} s, {got}, {n_facts} facts over "
@@ -589,6 +724,7 @@ def run_full_distributed() -> dict:
     }
     edited = {p: _drop_rows(r, dels[p]) if p in dels else r for p, r in dataset.items()}
     apply_launches = dict.fromkeys(launches, 0)
+    apply_largest = {k: {} for k in launches}
     for label, batch, explicit, want in (
         ("delete", {"deletions": dels}, edited, None),
         ("re-add", {"additions": dels}, dataset, oracle),
@@ -600,6 +736,9 @@ def run_full_distributed() -> dict:
         t_apply = time.perf_counter() - t0
         for k, v in ops.launch_counts().items():
             apply_launches[k] += v
+        for k, v in ops.largest_launches().items():
+            if sum(v.values()) > sum(apply_largest[k].values()):
+                apply_largest[k] = v
         log(f"[full-distributed] apply {label} of "
             f"{sum(int(r.shape[0]) for r in dels.values())} rows: {t_apply:.3f} s, "
             f"rounds {st.rounds}, rule applications {st.n_rule_applications}, "
@@ -611,7 +750,9 @@ def run_full_distributed() -> dict:
             raise AssertionError(f"full-distributed apply {label}: differs from re-materialisation")
         log(f"[full-distributed] apply {label}: equals flat_seminaive of the edited explicit set")
     log(f"[full-distributed] apply launches {apply_launches}")
-    return {"engine": eng, "launches": launches, "apply_launches": apply_launches}
+    log(f"[full-distributed] apply largest launch per kernel {apply_largest}")
+    return {"engine": eng, "launches": launches, "apply_launches": apply_launches,
+            "apply_largest": apply_largest}
 
 
 def run_closure(eng) -> dict:
@@ -746,8 +887,9 @@ def profile_run(program, dataset) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    hand = ("sorted_member_kernel", "join_bounds_kernel", "rle_expand_kernel",
-            "merge_rank_kernel", "merge_scatter_kernel")
+    hand = ("bucket_table_kernel", "bucket_probe_kernel", "empty_b_kernel",
+            "join_bounds_kernel", "rle_expand_kernel", "merge_rank_kernel",
+            "merge_scatter_kernel")
     for phase, prepare in _profile_phases(program, dataset):
         call = prepare()
         torch.cuda.synchronize()
@@ -837,7 +979,12 @@ def main() -> int:
 
     shapes = dict(full["largest_launch"])
     shapes["fused_join_dedup"] = closure["largest_launch"]["fused_join_dedup"]
-    kernel_numbers = check_kernels(torch.device("cuda"), shapes)
+    # sorted_member launches mostly on the distributed paths: time it at
+    # the apply's largest launch too, in the engine's int32 keys
+    extra = {"sorted_member": [
+        ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
+    ]}
+    kernel_numbers = check_kernels(torch.device("cuda"), shapes, extra)
 
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
@@ -868,6 +1015,12 @@ def main() -> int:
             "bound_by": num["bound_by"],
             "library_ms": num["library_ms"],
             "library_call": LIBRARY_CALLS[name],
+            "shape": num["shape"],
+            "dtype": num["dtype"],
+            "device_ms": num["device_ms"],
+            "library_device_ms": num["library_device_ms"],
+            "host_ms": num["host_ms"],
+            "timings": num["timings"],
         })
     log("[total] done")
     print(json.dumps({"kernels": kernels_line}))

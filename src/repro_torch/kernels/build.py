@@ -43,7 +43,7 @@ _I = ctypes.c_int64
 #: ``_i64`` suffix, unless ``KEY_TYPES`` names fewer); the last argument of
 #: every one is the CUDA stream
 SIGNATURES: dict[str, dict[str, tuple]] = {
-    "sorted_member": {"repro_sorted_member": (_P, _I, _P, _I, _P, _P)},
+    "sorted_member": {"repro_sorted_member": (_P, _I, _P, _I, _P, _P, _I, _P)},
     "join_bounds": {"repro_join_bounds": (_P, _I, _P, _I, _P, _P, _P)},
     "rle_expand": {"repro_rle_expand": (_P, _P, _I, _P, _I, _P)},
     "merge_sorted_unique": {

@@ -35,6 +35,8 @@ KERNELS = (
 _KEY_TYPES = {torch.int32: "i32", torch.int64: "i64"}
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _largest: dict[str, dict[str, int]] = {k: {} for k in KERNELS}
+#: the bound C function of each (entry, key type), with its library
+_entries: dict[tuple[str, torch.dtype], tuple] = {}
 
 
 def note_launch(kernel: str, **shape: int) -> None:
@@ -82,13 +84,26 @@ def check_keys(op: str, *tensors: torch.Tensor) -> None:
 def launch(kernel: str, entry: str, dtype: torch.dtype,
            device: torch.device, *args) -> None:
     """Run C entry ``<entry>_<i32|i64>`` of ``kernel``'s library on the
-    current stream of ``device``; raise if the launch was refused."""
-    lib = build.library(kernel)
+    current stream of ``device``; raise if the launch was refused.
+
+    The bound C function is kept per (entry, key type), the stream is read
+    as a raw pointer (``torch.cuda.current_stream`` builds a Python object
+    per call), and the current device is switched only when the tensors lie
+    on another one."""
+    bound = _entries.get((entry, dtype))
+    if bound is None:
+        lib = build.library(kernel)
+        bound = _entries[(entry, dtype)] = (lib, getattr(lib, f"{entry}_{_KEY_TYPES[dtype]}"))
+    lib, fn = bound
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the kernel takes CUDA tensors, got {device}")
-    fn = getattr(lib, f"{entry}_{_KEY_TYPES[dtype]}")
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{kernel}: launch of {entry} failed: {msg} ({err})")

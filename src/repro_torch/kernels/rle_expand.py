@@ -2,7 +2,9 @@
 
 Port of ``repro/kernels/rle_expand.py::rle_expand`` (TPU body
 ``_rle_kernel``) as the hand-written CUDA kernel ``csrc/rle_expand.cu``: one
-thread per output element, binary search over the inclusive run ends.
+block per 16 KB tile of output, which finds its first run by one warp search
+over the inclusive run ends and gives every output its run by a max-scan of
+run starts in shared memory.
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ def rle_expand(values: torch.Tensor, counts: torch.Tensor, total: int):
     if values.device.type == "cpu":
         return ref.rle_expand(values, counts, total)
     r = values.shape[0]
+    if r >= 2**31:
+        raise ValueError(f"rle_expand: {r} runs; the kernel takes fewer than 2**31")
     if total == 0 or r == 0:
         return torch.zeros(0, dtype=values.dtype, device=values.device)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    # inclusive run ends; a dtype argument costs a cast even on int64 counts
+    ends = counts.cumsum(0) if counts.dtype == torch.int64 else counts.cumsum(0, dtype=torch.int64)
     out = torch.empty(total, dtype=values.dtype, device=values.device)
     ops.launch(
         "rle_expand", "repro_rle_expand", values.dtype, values.device,

@@ -53,7 +53,17 @@ def _pad32(x, n):
     return np.concatenate([x, np.full(n, BIG32, np.int32)])
 
 
-@pytest.mark.parametrize("n,m", SHAPES)
+#: the cases the card's redesign is sensitive to: ``m = 1`` (one bucket),
+#: duplicates in ``b`` (keys drawn from 3,000 values) with ``n`` not a
+#: multiple of four, and ``b`` far longer than ``a`` (few, wide buckets)
+MEMBER_EDGES = [
+    pytest.param(300, 1, id="m-1"),
+    pytest.param(2003, 4000, id="n-ragged-duplicates"),
+    pytest.param(50, 20_000, id="few-probes-duplicates"),
+]
+
+
+@pytest.mark.parametrize("n,m", SHAPES + MEMBER_EDGES)
 def test_sorted_member_int32_vs_pallas(n, m):
     rng = np.random.default_rng(n * 31 + m)
     a = rng.integers(0, 3_000, size=n).astype(np.int32)
@@ -117,6 +127,15 @@ def test_join_bounds_int64_vs_searchsorted():
         [(3, 4), (7, 2), (9, 10)],
         [(1, 1000)],
         [(i, (i % 7) + 1) for i in range(300)],
+        # zero-length stretches at the start, in the middle and at the end
+        [(i, 0) for i in range(700)] + [(i, i % 40 + 1) for i in range(60)]
+        + [(i, 0) for i in range(900)] + [(7, 5000)] + [(i, 0) for i in range(999)],
+        # one run over many 16 KB output tiles, between two short ones
+        [(4, 2), (5, 20_001), (6, 1)],
+        # an odd total: the last tile ends inside a 16-byte vector
+        [(i, 163 + (i == 49)) for i in range(50)],
+        # one run holds 90 % of the total
+        [(i, 3) for i in range(40)] + [(99, 1080)] + [(i, 0) for i in range(9)],
     ],
 )
 def test_rle_expand_int32_vs_pallas(runs):

@@ -2,7 +2,9 @@
 
 The script times each kernel at the operand lengths the launch meter
 recorded on the full-size run; these tests hold its input builder and its
-bytes bound to those lengths at a small size.
+bytes bound to those lengths at a small size, and run every case it holds
+``sorted_member`` and ``rle_expand`` to through the port's plain version
+and the JAX package's Pallas kernel (interpret mode).
 """
 
 from __future__ import annotations
@@ -13,8 +15,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from numpy.testing import assert_array_equal
 
-from repro_torch.kernels import ref
+from repro.kernels.rle_expand import rle_expand as j_rle_expand
+from repro.kernels.sorted_member import sorted_member as j_sorted_member
+from repro_torch.kernels import ref, rle_expand, sorted_member
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -48,7 +53,7 @@ SHAPES = {
 def test_timed_case_has_the_metered_lengths(smoke, name, dtype):
     cases = smoke._cases(name, SHAPES[name], dtype, torch.device("cpu"),
                          np.random.default_rng(5))
-    (args,) = [a for _, a, timed in cases if timed]
+    (args,) = [a for label, a, timed in cases if timed and label == "full"]
     sh = SHAPES[name]
     size = dtype.itemsize
     if name in ("sorted_member", "join_bounds"):
@@ -118,3 +123,54 @@ def test_join_cases_have_the_metered_pairs(smoke, pairs):
     with pytest.raises(AssertionError, match="pairs"):
         smoke._cases("fused_join_dedup", dict(shape, pairs=pairs + 1, capacity=pairs),
                      torch.int32, torch.device("cpu"), np.random.default_rng(6))
+
+
+#: every case ``chip_smoke.py`` holds the two redesigned kernels to on the
+#: card, mirrored here in int32 against the Pallas kernels
+MIRRORED = {
+    "sorted_member": [
+        "full", "empty-a", "empty-b", "sentinel-padding", "all-sentinel", "m-1",
+        "duplicates-in-b", "sentinel-padding-long-b", "n-ragged",
+        "unaligned-views", "few-probes", "few-probes-sentinel", "clustered-keys",
+    ],
+    "rle_expand": [
+        "full", "skewed", "zero-runs", "one-run", "empty", "zero-stretches",
+        "one-run-many-tiles", "ragged-tail",
+    ],
+}
+
+
+def _int32_cases(smoke, name):
+    return smoke._cases(name, SHAPES[name], torch.int32, torch.device("cpu"),
+                        np.random.default_rng(7))
+
+
+@pytest.mark.parametrize(
+    "name,label", [(n, lab) for n, labels in MIRRORED.items() for lab in labels]
+)
+def test_kernel_cases_match_pallas(smoke, name, label):
+    """Each card case of ``sorted_member`` and ``rle_expand`` through the
+    port's wrapper (its plain version here) and the JAX package's Pallas
+    kernel in interpret mode, int32, exactly."""
+    (args,) = [a for lab, a, _ in _int32_cases(smoke, name) if lab == label]
+    if name == "sorted_member":
+        a, b = args
+        got = sorted_member(a, b).numpy()
+        want = np.asarray(j_sorted_member(a.numpy(), b.numpy(), interpret=True))
+        assert_array_equal(got, np.isin(a.numpy(), b.numpy()))
+    else:
+        vals, counts, total = args
+        got = rle_expand(vals, counts, total).numpy()
+        want = np.asarray(j_rle_expand(vals.numpy(), counts.numpy().astype(np.int32),
+                                       total=total, interpret=True))
+        assert_array_equal(got, np.repeat(vals.numpy(), counts.numpy()))
+    assert_array_equal(got, want)
+    if label == "skewed":
+        assert int(counts.max()) >= 0.9 * total
+    if label == "ragged-tail":
+        assert total % 4 and total % 2
+
+
+def test_mirrored_cases_are_every_card_case(smoke):
+    for name, labels in MIRRORED.items():
+        assert [lab for lab, _, _ in _int32_cases(smoke, name)] == labels
