@@ -39,13 +39,20 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        lengths (in int64; ``sorted_member`` and
                        ``rle_expand`` in both key types, ``rle_expand`` also
                        with one run holding 90 % of the output,
-                       ``sorted_member`` also at the distributed ``apply``'s
+                       ``sorted_member`` and ``join_bounds`` also at the
+                       distributed ``apply``'s largest launch in int32,
+                       ``join_bounds`` also at the CMat run's own two
+                       largest launches, ``CMAT_DISJOINT`` and
+                       ``CMAT_XJOIN``, and the merge at the closure's
                        largest launch in int32): kernel and library call
                        timed in alternating turns (kernel, library, library,
                        kernel, five times; medians of CUDA-event means), the
-                       device-only time of each from ``torch.profiler``, the
-                       kernel's host time per call, the plain version's
-                       time and the bytes bound;
+                       device-only time of each from ``torch.profiler`` (and
+                       the kernels it ran per call: the merge, called with
+                       its ``count`` as ``FactBuffers`` calls it, must run
+                       one kernel and no library scan), the kernel's host
+                       time per call, the plain version's time and the
+                       bytes bound;
 8. syncs             — the phase-3 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
 9. profile           — only with ``--profile``: one more load and
@@ -162,10 +169,11 @@ def host_ms(fn, reps: int = 20) -> float:
     return t * 1e3 / reps
 
 
-def device_ms(fn, reps: int = 20) -> float | None:
+def device_ms(fn, reps: int = 20) -> tuple[float | None, dict[str, float]]:
     """Device time of one call of ``fn`` from ``torch.profiler``: the self
     device time of every kernel, copy and set the card ran over ``reps``
-    calls, over ``reps``; ``None`` when the trace holds no device time."""
+    calls, over ``reps`` (``None`` when the trace holds no device time);
+    and how many times per call the card ran each of them, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -176,8 +184,9 @@ def device_ms(fn, reps: int = 20) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us else None
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(_device_us(e) for e in dev)
+    return (us / reps / 1e3 if us else None), {e.key: e.count / reps for e in dev}
 
 
 # --------------------------------------------------------------------- #
@@ -191,6 +200,33 @@ def _distinct(rng, n, hi):
     while x.shape[0] < n:
         x = np.unique(np.concatenate([x, rng.integers(0, hi, size=n)]))
     return rng.permutation(x)[:n]
+
+
+def _search_inputs(n, m, dtype, dev, rng, keys="random"):
+    """``(a, b)``: ``m`` sorted keys ``b`` and ``n`` probes ``a`` in random
+    order.  ``random``: distinct keys, half the probes keys of ``b``, half
+    uniform over the key type's range.  ``runs``: as the CMat xjoin
+    probes, ``n`` distinct keys that ``b`` holds ``m / n`` times each on
+    average.  ``15-bit``: as the distributed engine joins, keys below
+    2^15, ``b`` half real keys and half the sentinel padding of its join
+    capacity."""
+    import torch
+
+    if keys == "runs":
+        return _main_path_case("cmat-xjoin", {"n": n, "m": m}, dtype, dev, rng)
+    if keys == "15-bit":
+        from repro_torch.kernels import ref
+
+        b = np.concatenate([np.sort(rng.integers(0, 2**15, size=m // 2)),
+                            np.full(m - m // 2, ref.sentinel(dtype))])
+        a = rng.integers(0, 2**15, size=n)
+    else:
+        hi = 2**31 - 2 if dtype == torch.int32 else 2**62
+        b = np.sort(_distinct(rng, m, hi))
+        a = rng.permutation(np.concatenate([b[rng.integers(0, m, size=n // 2)],
+                                            rng.integers(0, hi, size=n - n // 2)]))
+    return (torch.as_tensor(a).to(dtype=dtype, device=dev),
+            torch.as_tensor(b).to(dtype=dtype, device=dev))
 
 
 def _cases(name, shape, dtype, dev, rng):
@@ -217,12 +253,7 @@ def _cases(name, shape, dtype, dev, rng):
     if name == "fused_join_dedup":
         return _join_cases(shape, t, sorted_t, pad, empty, rng)
     if name in ("sorted_member", "join_bounds"):
-        n, m = shape["n"], shape["m"]
-        b = sorted_t(_distinct(rng, m, hi))
-        # half the probes hit b, half are random
-        a = torch.cat([b[torch.randint(0, m, (n // 2,), device=dev)],
-                       t(rng.integers(0, hi, size=n - n // 2))])
-        a = a[torch.randperm(n, device=dev)]
+        a, b = _search_inputs(shape["n"], shape["m"], dtype, dev, rng)
         small_b = sorted_t(_distinct(rng, 100, 1000))
         small_a = t(rng.integers(0, 1000, size=300))
         cases = [
@@ -253,6 +284,52 @@ def _cases(name, shape, dtype, dev, rng):
                  False),
                 ("clustered-keys", (t(np.concatenate([clusters[::7], rng.integers(0, hi, 2000)])),
                                     t(clusters)), False),
+            ]
+        if name == "join_bounds":
+            # two far clusters of r with probes in the long gap between them
+            # (buckets no key falls in, whose starts must still be exact);
+            # probes below r[0] and above r[m - 1]; all of r equal (one
+            # bucket); m = 1; duplicates in l; n not a multiple of the four
+            # keys a thread takes and views off a 16-byte boundary; runs of
+            # duplicates in r longer than a bucket
+            clusters = np.concatenate([np.arange(5000), hi - 5000 + np.arange(5000)])
+            mid_r = sorted_t(rng.integers(hi // 3, 2 * hi // 3, size=3000))
+            outside = np.concatenate([rng.integers(0, hi // 3, size=500),
+                                      rng.integers(2 * hi // 3, hi, size=500)])
+            runs = sorted_t(np.repeat(rng.integers(0, 3000, size=300), 70))
+            # few left keys against many right ones (the warp path), most
+            # of them below r[0] or above r[m - 1]
+            wide_r = sorted_t(rng.integers(hi // 3, 2 * hi // 3, size=200_000))
+            wide_l = np.concatenate([outside[:800], wide_r[::1000].cpu().numpy()])
+            # a dense run of keys, then 40 keys spread over the rest of the
+            # span: 40 gaps of more than 1,024 buckets among one table
+            # block's keys, more than the block lists (its warps fill the
+            # rest), probed mostly inside the gaps
+            sparse_r = np.concatenate([np.arange(139_960), np.linspace(2**20, hi - 1, 40).astype(np.int64)])
+            sparse_l = np.concatenate([rng.integers(0, hi, size=39_000),
+                                       rng.integers(0, 139_960, size=1_000)])
+            # the distributed engine's sides: 15-bit keys, the right side
+            # padded with the sentinel to its join capacity (2^18), invalid
+            # left rows probing big - 1
+            dist_r = pad(sorted_t(rng.integers(0, 2**15, size=80_000)), (1 << 18) - 80_000)
+            dist_l = t(np.concatenate([rng.integers(0, 2**15, size=30_000),
+                                       np.full(500, big - 1), np.full(77, big)]))
+            cases += [
+                ("sentinel-padded-r", (dist_l[torch.randperm(dist_l.shape[0], device=dev)],
+                                       dist_r), False),
+                ("gap-probes", (t(np.concatenate([rng.integers(5000, hi - 5000, 3000),
+                                                  clusters[::7]])), t(clusters)), False),
+                ("out-of-span", (t(np.concatenate([outside, mid_r[::5].cpu().numpy()])), mid_r),
+                 False),
+                ("all-r-equal", (t(rng.integers(0, 20, size=1001)), t(np.full(4096, 10))), False),
+                ("m-1", (small_a, small_b[50:51].contiguous()), False),
+                ("duplicates-in-l", (t(np.repeat(rng.integers(0, 1000, size=50), 40)), small_b),
+                 False),
+                ("n-ragged", (small_a[:299].contiguous(), small_b), False),
+                ("unaligned-views", (small_a[2:], small_b[3:]), False),
+                ("long-runs-in-r", (t(rng.integers(0, 3100, size=20_003)), runs), False),
+                ("out-of-span-few-keys", (t(wide_l), wide_r), False),
+                ("many-long-gaps", (t(sparse_l), sorted_t(sparse_r)), False),
             ]
         return cases
     if name == "rle_expand":
@@ -298,6 +375,15 @@ def _cases(name, shape, dtype, dev, rng):
     exact_fill = torch.unique(
         torch.cat([small_old[:20], t(np.arange(1000, 1000 + n_room))])
     )
+    # runs of equal fresh values longer than a merge tile (7,936 int32 or
+    # 3,840 int64 positions), so tiles start and end inside them
+    run_fresh = sorted_t(np.repeat(_distinct(rng, 40, hi), 9000))
+    run_buf = pad(sorted_t(_distinct(rng, 3000, hi)), 5192)
+    # fresh inside a large buf: every value dropped, a hole [total, nb + f)
+    # far longer than a tile
+    big_old = sorted_t(_distinct(rng, 100_000, hi))
+    # the cut at cap falls inside a tile
+    cut_old = sorted_t(_distinct(rng, 5000, hi // 2))
     return [
         ("full", (buf, fresh), True),
         ("empty-buf-empty-fresh", (pad(empty, 128), empty), False),
@@ -306,7 +392,54 @@ def _cases(name, shape, dtype, dev, rng):
         ("fills-exactly", (small_buf, exact_fill), False),
         ("truncates", (small_buf, t(np.arange(2000, 2200))), False),
         ("padded-fresh", (small_buf, pad(small_old[1::2].contiguous(), 9)), False),
+        ("runs-across-tiles", (run_buf, run_fresh), False),
+        ("fresh-inside-buf", (pad(big_old, 162_144), big_old[1::2].contiguous()), False),
+        ("cut-mid-tile", (pad(cut_old, 12_800 - 5000),
+                          sorted_t(hi // 2 + _distinct(rng, 10_000, hi // 2))), False),
+        ("cap-far-above-inputs", (pad(small_old, (1 << 20) - 100), t(np.arange(2000, 2200))),
+         False),
     ]
+
+
+#: the main path's own launches that the synthetic ``full`` cases miss
+#: (CMat ``lubm_like(500, 1_000_000, 10_000)``, ``_xjoin_head_rows``): the
+#: largest, whose left keys (1,000 values) all lie above the right keys
+#: (1,000,000 values), and the one whose right keys repeat its 10,000
+#: distinct left keys
+CMAT_DISJOINT = {"n": 3_993_727, "m": 3_993_727, "l_values": 1_000, "r_values": 1_000_000}
+CMAT_XJOIN = {"n": 10_000, "m": 2_999_718}
+
+
+def _main_path_case(label, shape, dtype, dev, rng):
+    """``(l_keys, r_sorted)`` of a ``join_bounds`` launch as the CMat run
+    gives it (``CMAT_DISJOINT``, ``CMAT_XJOIN`` or a smaller copy)."""
+    import torch
+
+    n, m = shape["n"], shape["m"]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x)).to(dtype=dtype, device=dev)
+
+    if label == "cmat-disjoint":
+        nl, nr = shape["l_values"], shape["r_values"]
+        # right keys: every one of nr values at least once, in [501, 501 + nr)
+        r = np.sort(np.concatenate([np.arange(nr), rng.integers(0, nr, size=m - nr)])) + 501
+        l = rng.integers(0, nl, size=n) + 501 + nr
+        return t(l), t(r)
+    # cmat-xjoin: n distinct left keys, the right keys over the same values
+    keys = _distinct(rng, n, 10 * n) + 501
+    counts = rng.multinomial(m - n, [1 / n] * n) + 1
+    return t(keys), t(np.sort(np.repeat(keys, counts)))
+
+
+def _timed_args(name, label, shape, dtype, dev, rng):
+    """The inputs of one timed case: a main-path launch of
+    :func:`_main_path_case`, or the ``full`` case of :func:`_cases` at
+    ``shape``."""
+    if label in ("cmat-disjoint", "cmat-xjoin"):
+        return _main_path_case(label, shape, dtype, dev, rng)
+    (args,) = [a for lab, a, _ in _cases(name, shape, dtype, dev, rng) if lab == "full"]
+    return args
 
 
 def _join_cases(shape, t, sorted_t, pad, empty, rng):
@@ -368,15 +501,35 @@ def _as_list(out):
     return list(out) if isinstance(out, tuple) else [out]
 
 
+def _deciding_bytes(keys, bounds):
+    """Bytes of the sorted ``keys`` that any search must read to certify
+    the positions ``bounds`` (an int tensor of lower or upper bounds): the
+    keys on either side of each, in the 32-byte sectors that hold them, at
+    most all of ``keys``.  A key outside the span needs only an end."""
+    import torch
+
+    m, size = keys.shape[0], keys.element_size()
+    at = torch.cat([bounds - 1, bounds]).to(torch.int64)
+    at = at[(at >= 0) & (at < m)]
+    sectors = torch.unique((keys.data_ptr() % 32 + at * size) // 32).shape[0]
+    return min(m * size, 32 * sectors)
+
+
 def _bytes(name, args, dtype_size):
     """Bytes the function must move: each input read once, each output
-    written once."""
+    written once; of the sorted side of a search only what decides the
+    answers (:func:`_deciding_bytes`, from this run's data)."""
+    import torch
+
     if name == "sorted_member":
         a, b = args
-        return (a.shape[0] + b.shape[0]) * dtype_size + a.shape[0]
+        deciding = _deciding_bytes(b, torch.searchsorted(b, a))
+        return a.shape[0] * dtype_size + deciding + a.shape[0]
     if name == "join_bounds":
         a, b = args
-        return (a.shape[0] + b.shape[0]) * dtype_size + 8 * a.shape[0]
+        deciding = _deciding_bytes(b, torch.cat([torch.searchsorted(b, a),
+                                                 torch.searchsorted(b, a, right=True)]))
+        return a.shape[0] * dtype_size + deciding + 8 * a.shape[0]
     if name == "rle_expand":
         vals, counts, total = args
         return vals.shape[0] * (dtype_size + counts.element_size()) + total * dtype_size
@@ -432,13 +585,72 @@ def _library_call(name, args):
 BOTH_KEY_TYPES = ("sorted_member", "rle_expand")
 
 
+def main_path_call(name, kernel, args):
+    """``kernel`` on ``args`` as the main path calls it: the merge with
+    ``count``, the number of codes ``buf`` holds, as ``FactBuffers``
+    passes it (counted once here)."""
+    if name != "merge_sorted_unique":
+        return lambda: kernel(*args)
+    from repro_torch.kernels import ref
+
+    buf, fresh = args
+    count = int((buf != ref.sentinel(buf.dtype)).sum())
+    return lambda: kernel(buf, fresh, count=count)
+
+
+#: the kernels of each ``join_bounds`` path, as the profiler names them
+PATH_KERNELS = {
+    "table": ("join_bounds_table_kernel", "join_bounds_probe_kernel"),
+    "warp": ("join_bounds_warp_kernel",),
+    "thread": ("join_bounds_thread_kernel",),
+}
+
+
 def _check_equal(name, label, dtype, kernel, plain, args) -> int:
-    """Hold one kernel call against its plain version exactly; returns
-    the largest absolute difference (0)."""
+    """Hold one kernel call against its plain version exactly (the merge
+    both with and without ``count``; ``join_bounds`` by the path its sizes
+    pick and by each of its paths, checking under the profiler which
+    kernels each ran); returns the largest absolute difference (0)."""
+    want = _as_list(plain(*args))
+    calls = [lambda: kernel(*args)]
+    if name == "merge_sorted_unique":
+        calls.append(main_path_call(name, kernel, args))
+    if name == "join_bounds":
+        from repro_torch.kernels.join_bounds import PATHS, join_bounds_by
+
+        calls += [lambda p=p: join_bounds_by(*args, p) for p in PATHS]
+    err = 0
+    for call in calls:
+        err = max(err, _compare(name, label, dtype, _as_list(call()), want))
+    if name == "join_bounds":
+        _check_paths_ran(label, dtype, args, calls)
+    log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
+    return err
+
+
+def _check_paths_ran(label, dtype, args, calls) -> None:
+    """Profiled runs of a ``join_bounds`` case's calls (the routed one, then
+    one per path) must have run exactly the kernels of those paths, none
+    where a side is empty (counts per run rounded: the profiler may drop
+    the first kernel of its trace)."""
+    from repro_torch.kernels.join_bounds import PATHS, route
+
+    n, m = args[0].shape[0], args[1].shape[0]
+    want = dict.fromkeys(k for ks in PATH_KERNELS.values() for k in ks)
+    for k in want:
+        want[k] = sum(k in PATH_KERNELS[p] for p in (route(n, m), *PATHS)) if n and m else 0
+    _, ran = device_ms(lambda: [c() for c in calls], reps=5)
+    got = {k: round(sum(c for key, c in ran.items() if k in key)) for k in want}
+    if got != want:
+        raise AssertionError(f"join_bounds {dtype} {label} ({n} x {m}, routed "
+                             f"{route(n, m)}): kernels run {got}, not {want}")
+
+
+def _compare(name, label, dtype, got, want) -> int:
+    """The largest absolute difference of equal outputs; raises unless
+    every output equals its plain counterpart."""
     import torch
 
-    got = _as_list(kernel(*args))
-    want = _as_list(plain(*args))
     torch.cuda.synchronize()
     err = 0
     for g, w in zip(got, want):
@@ -450,7 +662,6 @@ def _check_equal(name, label, dtype, kernel, plain, args) -> int:
             raise AssertionError(f"{name} {dtype} {label}: kernel != plain version")
         if g.numel():
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-    log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
     return err
 
 
@@ -460,21 +671,32 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     the profiler, the kernel's host time per call, the plain version's
     time, and the bytes bound of these inputs."""
     library = _library_call(name, args)
-    ms, library_ms = alternating_ms(lambda: kernel(*args), library)
+    call = main_path_call(name, kernel, args)
+    ms, library_ms = alternating_ms(call, library)
+    kernel_device_ms, device_ops = device_ms(call)
     entry = {
         "case": label,
         "dtype": str(dtype)[6:],
         "shape": dict(shape),
         "ms": ms,
         "library_ms": library_ms,
-        "device_ms": device_ms(lambda: kernel(*args)),
-        "library_device_ms": device_ms(library),
-        "host_ms": host_ms(lambda: kernel(*args)),
+        "device_ms": kernel_device_ms,
+        "device_ops_per_call": device_ops,
+        "library_device_ms": device_ms(library)[0],
+        "host_ms": host_ms(call),
         "plain_ms": cuda_ms(lambda: plain(*args)),
         "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
     log(f"[kernels] {name} {entry['dtype']} {label} {shape}: {entry}")
+    # the merge as the main path calls it is one kernel (two only when it
+    # must find how many codes buf holds), never with a library scan;
+    # copies and sets are not kernels
+    kernels = sum(c for k, c in device_ops.items() if not k.startswith(("Memset", "Memcpy")))
+    if name == "merge_sorted_unique" and (
+        kernels > 1 or any("Scan" in k or "cumsum" in k for k in device_ops)
+    ):
+        raise AssertionError(f"merge_sorted_unique {label}: device work per call {device_ops}")
     return entry
 
 
@@ -515,7 +737,7 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]],
         for label, shape, extra_dtypes in extra.get(name, ()):
             for dtype in extra_dtypes:
                 rng = np.random.default_rng([ops.KERNELS.index(name), dtype.itemsize, 1])
-                (args,) = [a for lab, a, _ in _cases(name, shape, dtype, dev, rng) if lab == "full"]
+                args = _timed_args(name, label, shape, dtype, dev, rng)
                 err = max(err, _check_equal(name, label, dtype, kernel, plain, args))
                 timings.append(_time_case(name, label, dtype, shape, kernel, plain, args))
         # the line's own numbers: the main-path launch in its key type
@@ -523,6 +745,47 @@ def check_kernels(dev, shapes: dict[str, dict[str, int]],
                    if t["case"] == "full" and t["dtype"] == str(dtypes[-1])[6:]]
         results[name] = dict(main, max_abs_err=err, timings=timings)
     return results
+
+
+#: ``join_bounds`` path sweep, ``(keys, n, m)`` (:func:`_search_inputs`):
+#: random keys at equal sides from 2^16 to 2^22 and at 2^22 right keys
+#: against 2^12 to 2^18 left keys (around ``WARP_KEYS`` and
+#: ``THREAD_KEYS``), the CMat xjoin's runs of equal keys around
+#: ``WARP_KEYS``, and the distributed engine's 15-bit keys at equal sides
+#: around ``THREAD_KEYS``
+PATH_SWEEP = ([("random", 1 << k, 1 << k) for k in (16, 17, 18, 19, 20, 22)]
+              + [("random", 1 << k, 1 << 22) for k in (12, 13, 14, 16, 18)]
+              + [("runs", 1 << k, 1 << 22) for k in (12, 13, 14, 15, 16)]
+              + [("15-bit", 1 << k, 1 << k) for k in (17, 18, 19)])
+
+
+def sweep_join_bounds(dev) -> list[dict]:
+    """Every ``join_bounds`` path at each :data:`PATH_SWEEP` point, in both
+    key types: each held against
+    the plain version, then event-timed (:func:`cuda_ms`) and timed on
+    the device alone (:func:`device_ms`); and the path :func:`route`
+    picks there."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.join_bounds import PATHS, join_bounds_by, route
+
+    points = []
+    for dtype in (torch.int32, torch.int64):
+        rng = np.random.default_rng([ops.KERNELS.index("join_bounds"), dtype.itemsize, 3])
+        for keys, n, m in PATH_SWEEP:
+            l, r = _search_inputs(n, m, dtype, dev, rng, keys)
+            want = ref.join_bounds(l, r)
+            point = {"keys": keys, "n": n, "m": m, "dtype": str(dtype)[6:],
+                     "routed": route(n, m)}
+            for path in PATHS:
+                call = lambda p=path: join_bounds_by(l, r, p)  # noqa: E731
+                _compare("join_bounds", f"sweep {n} x {m} {path}", dtype, list(call()), want)
+                point[path] = {"ms": cuda_ms(call), "device_ms": device_ms(call, reps=10)[0]}
+            log(f"[sweep] join_bounds {point}")
+            points.append(point)
+            del l, r, want
+    return points
 
 
 # --------------------------------------------------------------------- #
@@ -888,8 +1151,9 @@ def profile_run(program, dataset) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     hand = ("bucket_table_kernel", "bucket_probe_kernel", "empty_b_kernel",
-            "join_bounds_kernel", "rle_expand_kernel", "merge_rank_kernel",
-            "merge_scatter_kernel")
+            "join_bounds_table_kernel", "join_bounds_probe_kernel",
+            "join_bounds_warp_kernel", "join_bounds_thread_kernel", "rle_expand_kernel",
+            "merge_path_kernel", "merge_count_kernel")
     for phase, prepare in _profile_phases(program, dataset):
         call = prepare()
         torch.cuda.synchronize()
@@ -979,12 +1243,26 @@ def main() -> int:
 
     shapes = dict(full["largest_launch"])
     shapes["fused_join_dedup"] = closure["largest_launch"]["fused_join_dedup"]
-    # sorted_member launches mostly on the distributed paths: time it at
-    # the apply's largest launch too, in the engine's int32 keys
-    extra = {"sorted_member": [
-        ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
-    ]}
+    # sorted_member and join_bounds launch mostly on the distributed paths:
+    # time them at the apply's largest launch too, in the engine's int32
+    # keys; join_bounds also at the CMat run's own launches, and the merge
+    # at the closure's largest (int32, into a buffer that holds codes)
+    closure_merge = closure["largest_launch"]["merge_sorted_unique"]
+    if not closure_merge.get("count"):
+        raise AssertionError(f"the closure's largest merge holds no codes: {closure_merge}")
+    extra = {
+        "sorted_member": [
+            ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
+        ],
+        "join_bounds": [
+            ("cmat-disjoint", CMAT_DISJOINT, (torch.int64,)),
+            ("cmat-xjoin", CMAT_XJOIN, (torch.int64,)),
+            ("distributed-apply", dist["apply_largest"]["join_bounds"], (torch.int32,)),
+        ],
+        "merge_sorted_unique": [("closure", closure_merge, (torch.int32,))],
+    }
     kernel_numbers = check_kernels(torch.device("cuda"), shapes, extra)
+    kernel_numbers["join_bounds"]["path_sweep"] = sweep_join_bounds(torch.device("cuda"))
 
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
@@ -1021,6 +1299,7 @@ def main() -> int:
             "library_device_ms": num["library_device_ms"],
             "host_ms": num["host_ms"],
             "timings": num["timings"],
+            **({"path_sweep": num["path_sweep"]} if "path_sweep" in num else {}),
         })
     log("[total] done")
     print(json.dumps({"kernels": kernels_line}))

@@ -44,11 +44,10 @@ _I = ctypes.c_int64
 #: every one is the CUDA stream
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "sorted_member": {"repro_sorted_member": (_P, _I, _P, _I, _P, _P, _I, _P)},
-    "join_bounds": {"repro_join_bounds": (_P, _I, _P, _I, _P, _P, _P)},
+    "join_bounds": {"repro_join_bounds": (_P, _I, _P, _I, _P, _P, _P, _I, _P)},
     "rle_expand": {"repro_rle_expand": (_P, _P, _I, _P, _I, _P)},
     "merge_sorted_unique": {
-        "repro_merge_rank": (_P, _I, _P, _I, _P, _P, _P),
-        "repro_merge_scatter": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
+        "repro_merge_sorted_unique": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
     },
     "fused_join_dedup": {
         "repro_fjd_count": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
@@ -80,7 +79,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for part in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -77,6 +77,26 @@ __device__ __forceinline__ int64_t upper_bound_from(const T* __restrict__ x,
   return lo + upper_bound(x + lo, hi - lo, v);
 }
 
+// The smallest i in [lo, hi] at which ``pred`` is false, ``pred`` being
+// true then false over [lo, hi), by one whole warp: each step every lane
+// tests one of 32 evenly spaced positions and a ballot keeps the stretch
+// where the answer lies.  Every lane returns it.
+template <typename Pred>
+__device__ __forceinline__ int64_t warp_search(int64_t lo, int64_t hi,
+                                               Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t p = lo + lane * step;
+    const int c = __popc(__ballot_sync(0xffffffffu, p < hi && pred(p)));
+    if (c == 0) break;
+    const int64_t cut = lo + c * step;  // the first position tested false
+    lo += (c - 1) * step + 1;
+    if (cut < hi) hi = cut;
+  }
+  return lo;
+}
+
 constexpr int kThreads = 256;
 // grid-stride loops cover any length with at most this many blocks
 constexpr int64_t kMaxBlocks = 1 << 16;

@@ -5,144 +5,416 @@
 // (``_merge_impl`` / body ``_merge_kernel``), which sorts ``buf ++ fresh``
 // in VMEM, masks adjacent duplicates and sorts again to compact, writing
 // over ``buf`` (``input_output_aliases``).  On this card the op is memory
-// bound: it must read the ``nb`` occupied slots of ``buf`` (the sentinel
-// tail is found by one binary search, never read) and ``fresh`` once, and
-// write ``cap`` values, so its bound is (nb + f + cap) * sizeof(T) bytes
-// over 3.35 TB/s.  No sort is
-// needed because both inputs are already sorted: it is a rank merge in two
-// launches with a prefix sum between them (``torch.cumsum`` in the
-// wrapper):
+// bound: it must read the ``nb`` occupied slots of ``buf`` and ``fresh``
+// once and write ``cap`` values, so its bound is (nb + f + cap) * sizeof(T)
+// bytes over 3.35 TB/s.  No sort is needed because both inputs are sorted.
+// The first design ranked every element by a binary search, moved about
+// 45 bytes of scratch per fresh element through three launches and a
+// ``torch.cumsum``, and searched ``buf`` for its length in every block.
 //
-//   1. ``merge_rank``: one thread per fresh element binary-searches ``buf``;
-//      it is kept unless it is a sentinel, repeats its predecessor, or is
-//      already in ``buf``.  It records keep (0/1) and its rank in ``buf``.
-//   2. ``merge_scatter``: each kept fresh element lands at
-//      (kept before it) + (its rank in buf); each buf element at
-//      (its index) + (kept fresh below it, by a binary search of ``fresh``
-//      and a read of the prefix sum).  Slots from the merged total up to
-//      ``cap`` get the sentinel.  The output goes to a second buffer, never
-//      over ``buf``: threads read ``buf`` while others write.
+// This design is one merge-path pass over the inputs (``merge_path``):
 //
-// ``stats`` receives the uncapped unique total and the number of new
-// values, as ``_merge_kernel``'s ``count`` and ``n_new``.
+//   * The merged sequence of A = buf[:nb] and B = fresh (ties: A first) is
+//     cut into tiles of kTile positions.  A block finds a tile's two
+//     splits along the merge path by 32-way warp searches (none when one
+//     side is empty), copies both segments into shared memory as aligned
+//     16-byte chunks (asynchronous copies, all in flight at once), and
+//     each thread merges kItems of them (an odd count, so a warp's reads
+//     hit distinct banks).
+//   * An item is kept when it is not the sentinel and differs from its
+//     predecessor in merged order (for a tile's first item, the larger of
+//     the elements just before the two splits).  With ties ordered A
+//     first, this one rule drops repeats inside ``fresh`` and values
+//     already in ``buf``.
+//   * ``cub::BlockScan`` places each kept item within the tile; a
+//     decoupled look-back over per-tile status words (aggregate, then
+//     inclusive prefix; one warp reads 128 predecessors a step) gives the
+//     tile's global offset.  The kept items are compacted in shared memory
+//     and stored coalesced, cut at ``cap``.
+//   * The grid is persistent and launched cooperatively (every block
+//     resident), each block taking tiles in increasing order, so a
+//     look-back waits only on tiles that are running or done.  Slots past
+//     nb + f get the sentinel at once; the hole [total, nb + f) that
+//     dropped items leave is known only when the last tile is placed, so
+//     after one grid barrier every block fills its share of it.
+//
+// ``scratch`` (int64 words, zeroed by the entry with a memset on the same
+// stream): [0] the uncapped unique total and [1] the number of new values
+// (``_merge_kernel``'s ``count`` and ``n_new``), [2] ``nb`` when the caller
+// did not give it (found by ``merge_count``, one warp, the only other
+// launch), [3] barrier arrivals, [4 ..) one status word per tile.  The
+// output goes to a second buffer, never over ``buf``.
+#include <cuda_pipeline.h>
+
+#include <cub/block/block_scan.cuh>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int kThreads = repro::kThreads;
+
 template <typename T>
-__global__ void merge_rank_kernel(const T* __restrict__ buf, int64_t cap,
-                                  const T* __restrict__ fresh, int64_t nf,
-                                  int32_t* __restrict__ keep,
-                                  int64_t* __restrict__ rank) {
-  constexpr T kBig = repro::Sentinel<T>::value;
-  __shared__ int64_t s_nb;
-  if (threadIdx.x == 0) s_nb = repro::lower_bound(buf, cap, kBig);
+struct Tile;
+template <>
+struct Tile<int32_t> {
+  static constexpr int kItems = 31;  // 31 KB of keys per tile
+};
+template <>
+struct Tile<int64_t> {
+  static constexpr int kItems = 15;  // 30 KB of keys per tile
+};
+
+constexpr int kTotal = 0, kNew = 1, kNb = 2, kArrive = 3, kStatus = 4;
+// a tile's status word: its count, flagged as the tile's own (aggregate)
+// or as everything up to and including it (inclusive)
+constexpr uint64_t kAggregate = uint64_t{1} << 62;
+constexpr uint64_t kInclusive = uint64_t{1} << 63;
+constexpr uint64_t kValue = kAggregate - 1;
+// a wait longer than this is a fault: trap rather than hang the card
+constexpr uint64_t kSpinLimitNs = 2000000000ull;
+
+__device__ __forceinline__ uint64_t load_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// *p once it is at least ``least``
+__device__ uint64_t wait_for(const uint64_t* p, uint64_t least) {
+  uint64_t v = load_acquire(p);
+  if (v >= least) return v;
+  const uint64_t t0 = now_ns();
+  while ((v = load_acquire(p)) < least) {
+    __nanosleep(32);
+    if (now_ns() - t0 > kSpinLimitNs) __trap();
+  }
+  return v;
+}
+
+// The number of A's among the first d items of the merge of A and B
+// (ties: A first).
+template <typename T>
+__device__ __forceinline__ int64_t warp_merge_path(const T* __restrict__ a,
+                                                   int64_t na,
+                                                   const T* __restrict__ b,
+                                                   int64_t nb, int64_t d) {
+  return repro::warp_search(max(int64_t{0}, d - nb), min(d, na),
+                            [=](int64_t i) { return a[i] <= b[d - 1 - i]; });
+}
+
+// The aligned 16-byte chunks that hold a[0, na) and then b[0, nb) copied
+// into ``raw`` by the block with asynchronous copies (no registers, all in
+// flight together); returns where a's and b's items start in ``raw``.
+// Bytes outside ``a`` or ``b`` lie in the same chunks as their first and
+// last items.
+template <typename T>
+__device__ __forceinline__ int2 load_tile(T* __restrict__ raw,
+                                          const T* __restrict__ a, int na,
+                                          const T* __restrict__ b, int nb) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+  const int head_a = static_cast<int>(pa & 15) / sizeof(T);
+  const int head_b = static_cast<int>(pb & 15) / sizeof(T);
+  const int ca = na ? (head_a + na + kVec - 1) / kVec : 0;
+  const int cb = nb ? (head_b + nb + kVec - 1) / kVec : 0;
+  const int4* base_a = reinterpret_cast<const int4*>(pa & ~uintptr_t{15});
+  const int4* base_b = reinterpret_cast<const int4*>(pb & ~uintptr_t{15});
+  int4* dst = reinterpret_cast<int4*>(raw);
+  for (int c = threadIdx.x; c < ca + cb; c += kThreads) {
+    __pipeline_memcpy_async(dst + c, c < ca ? base_a + c : base_b + (c - ca), 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  return make_int2(head_a, ca * kVec + head_b);
+}
+
+// out[begin, end) = sentinel, by the whole grid
+template <typename T>
+__device__ __forceinline__ void fill_sentinel(T* __restrict__ out,
+                                              int64_t begin, int64_t end) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t p = begin + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       p < end; p += stride) {
+    out[p] = repro::Sentinel<T>::value;
+  }
+}
+
+// Tile g's exclusive prefix, by warp 0 of its block (every lane returns
+// it); publishes the tile's aggregate first and its inclusive prefix last.
+// Each step reads kWindows windows of 32 predecessors at once, so a tile
+// far from the nearest inclusive prefix (as in the first wave, when every
+// tile starts together) waits for few round trips.
+__device__ int64_t look_back(uint64_t* __restrict__ status, int64_t g,
+                             int64_t count) {
+  constexpr int kWindows = 4;
+  const int lane = threadIdx.x & 31;
+  if (g == 0) {
+    if (lane == 0) store_release(status, kInclusive | count);
+    return 0;
+  }
+  if (lane == 0) store_release(status + g, kAggregate | count);
+  int64_t before = 0;
+  for (int64_t top = g - 1;; top -= 32 * kWindows) {
+    // every status word before a published one is published (nonzero);
+    // those before tile 0 read as an inclusive 0
+    uint64_t s[kWindows];
+#pragma unroll
+    for (int w = 0; w < kWindows; ++w) {
+      const int64_t k = top - 32 * w - lane;
+      s[w] = k >= 0 ? load_acquire(status + k) : kInclusive;
+    }
+#pragma unroll
+    for (int w = 0; w < kWindows; ++w) {
+      if (!s[w]) s[w] = wait_for(status + (top - 32 * w - lane), 1);
+    }
+#pragma unroll
+    for (int w = 0; w < kWindows; ++w) {
+      const unsigned incl = __ballot_sync(0xffffffffu, (s[w] & kInclusive) != 0);
+      const int stop = incl ? __ffs(incl) - 1 : 31;
+      int64_t v = lane <= stop ? static_cast<int64_t>(s[w] & kValue) : 0;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      before += v;
+      if (incl) {
+        if (lane == 0) store_release(status + g, kInclusive | (before + count));
+        return before;
+      }
+    }
+  }
+}
+
+__device__ void grid_barrier(uint64_t* arrive) {
   __syncthreads();
-  const int64_t nb = s_nb;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < nf; j += stride) {
-    const T f = fresh[j];
-    int64_t p = 0;
-    int32_t k = 0;
-    if (f != kBig && (j == 0 || fresh[j - 1] != f)) {
-      p = repro::lower_bound(buf, nb, f);
-      k = (p < nb && buf[p] == f) ? 0 : 1;
-    }
-    keep[j] = k;
-    rank[j] = p;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(reinterpret_cast<unsigned long long*>(arrive), 1ull);
+    wait_for(arrive, gridDim.x);
   }
-}
-
-template <typename T>
-__global__ void merge_scatter_kernel(const T* __restrict__ buf, int64_t cap,
-                                     const T* __restrict__ fresh, int64_t nf,
-                                     const int32_t* __restrict__ keep,
-                                     const int64_t* __restrict__ rank,
-                                     const int64_t* __restrict__ kcum,
-                                     T* __restrict__ out,
-                                     int64_t* __restrict__ stats) {
-  constexpr T kBig = repro::Sentinel<T>::value;
-  __shared__ int64_t s_nb;
-  if (threadIdx.x == 0) s_nb = repro::lower_bound(buf, cap, kBig);
   __syncthreads();
-  const int64_t nb = s_nb;
-  const int64_t n_new = nf > 0 ? kcum[nf - 1] : 0;
-  const int64_t total = nb + n_new;
-  const int64_t work = cap > nf ? cap : nf;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < work; t += stride) {
-    if (t < nb) {
-      const T v = buf[t];
-      const int64_t p = repro::lower_bound(fresh, nf, v);
-      const int64_t d = t + (p > 0 ? kcum[p - 1] : 0);
-      if (d < cap) out[d] = v;
-    }
-    if (t < nf && keep[t]) {
-      const int64_t d = (kcum[t] - 1) + rank[t];
-      if (d < cap) out[d] = fresh[t];
-    }
-    if (t < cap && t >= total) out[t] = kBig;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    stats[0] = total;
-    stats[1] = n_new;
-  }
 }
 
 template <typename T>
-int launch_rank(const void* buf, int64_t cap, const void* fresh, int64_t nf,
-                void* keep, void* rank, void* stream) {
-  merge_rank_kernel<T><<<repro::grid_for(nf), repro::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(buf), cap, static_cast<const T*>(fresh), nf,
-      static_cast<int32_t*>(keep), static_cast<int64_t*>(rank));
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads)
+merge_path_kernel(const T* __restrict__ buf, int64_t cap, int64_t nb_given,
+                  const T* __restrict__ fresh, int64_t nf, T* __restrict__ out,
+                  int64_t* __restrict__ scratch) {
+  constexpr T kBig = repro::Sentinel<T>::value;
+  constexpr int kItems = Tile<T>::kItems;
+  constexpr int kTile = kThreads * kItems;
+  using Scan = cub::BlockScan<int, kThreads>;
+  __shared__ typename Scan::TempStorage scan_tmp;
+  // the tile's inputs as 16-byte chunks (a span of n items starting
+  // anywhere covers at most n / kVec + 2 of them), later its kept items
+  __shared__ __align__(16) T items[kTile + 3 * (16 / sizeof(T))];
+  __shared__ int64_t split[2];
+  __shared__ int64_t offset;
+  __shared__ T tile_prev;
+  __shared__ bool tile_has_prev;
+
+  auto* words = reinterpret_cast<uint64_t*>(scratch);
+  const int64_t nb = nb_given >= 0 ? nb_given : scratch[kNb];
+  const int64_t n_in = nb + nf;
+  const int64_t tiles = (n_in + kTile - 1) / kTile;
+  const int warp = threadIdx.x >> 5;
+
+  // no tile writes past the inputs' length: the sentinel goes there now
+  fill_sentinel(out, min(n_in, cap), cap);
+
+  for (int64_t g = blockIdx.x; g < tiles; g += gridDim.x) {
+    const int64_t d0 = g * kTile;
+    const int64_t d1 = min(d0 + kTile, n_in);
+    if (warp < 2) {
+      const int64_t i = warp_merge_path(buf, nb, fresh, nf, warp ? d1 : d0);
+      if ((threadIdx.x & 31) == 0) split[warp] = i;
+    }
+    __syncthreads();
+    const int64_t i0 = split[0], j0 = d0 - split[0];
+    const int na = static_cast<int>(split[1] - i0);
+    const int len = static_cast<int>(d1 - d0);
+    const int nbt = len - na;
+    const int2 at = load_tile(items, buf + i0, na, fresh + j0, nbt);
+    const T* sa = items + at.x;
+    const T* sb = items + at.y;
+    if (threadIdx.x == 0) {
+      // the tile's first item follows the larger of A[i0 - 1], B[j0 - 1]
+      T p = kBig;
+      bool has = false;
+      if (i0 > 0) {
+        p = buf[i0 - 1];
+        has = true;
+      }
+      if (j0 > 0) {
+        const T q = fresh[j0 - 1];
+        p = has ? max(p, q) : q;
+        has = true;
+      }
+      tile_prev = p;
+      tile_has_prev = has;
+    }
+    __syncthreads();
+
+    // this thread's items: tile positions [diag, diag + kItems)
+    const int diag = min(static_cast<int>(threadIdx.x) * kItems, len);
+    int lo = max(0, diag - nbt), hi = min(diag, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sa[mid] <= sb[diag - 1 - mid]) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    int ai = lo, bi = diag - lo;
+    T prev;
+    bool has;
+    if (diag == 0) {
+      prev = tile_prev;
+      has = tile_has_prev;
+    } else {
+      has = true;
+      prev = ai > 0 ? sa[ai - 1] : sb[bi - 1];
+      if (ai > 0 && bi > 0) prev = max(prev, sb[bi - 1]);
+    }
+    T v[kItems];
+    unsigned keep = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (diag + k < len) {
+        const bool take_a = ai < na && (bi >= nbt || sa[ai] <= sb[bi]);
+        const T x = take_a ? sa[ai++] : sb[bi++];
+        keep |= static_cast<unsigned>(x != kBig && (!has || x != prev)) << k;
+        v[k] = x;
+        prev = x;
+        has = true;
+      }
+    }
+    int rank, kept;
+    Scan(scan_tmp).ExclusiveSum(__popc(keep), rank, kept);
+    __syncthreads();  // every merge read of ``items`` is done
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if ((keep >> k) & 1) items[rank++] = v[k];
+    }
+    if (warp == 0) {
+      const int64_t before = look_back(words + kStatus, g, kept);
+      if (threadIdx.x == 0) {
+        offset = before;
+        if (g == tiles - 1) scratch[kTotal] = before + kept;
+      }
+    }
+    __syncthreads();
+    const int64_t off = offset;
+    for (int k = threadIdx.x; k < kept && off + k < cap; k += kThreads) {
+      out[off + k] = items[k];
+    }
+    __syncthreads();  // ``items`` and ``split`` are free for the next tile
+  }
+
+  grid_barrier(words + kArrive);
+  const int64_t total = static_cast<int64_t>(load_acquire(words + kTotal));
+  // the hole that dropped items leave before the inputs' length
+  fill_sentinel(out, min(total, cap), min(n_in, cap));
+  if (blockIdx.x == 0 && threadIdx.x == 0) scratch[kNew] = total - nb;
+}
+
+// scratch[kNb] = #{k < cap : buf[k] != sentinel}, by one warp
+template <typename T>
+__global__ void merge_count_kernel(const T* __restrict__ buf, int64_t cap,
+                                   int64_t* __restrict__ scratch) {
+  constexpr T kBig = repro::Sentinel<T>::value;
+  const int64_t nb =
+      repro::warp_search(0, cap, [=](int64_t i) { return buf[i] < kBig; });
+  if (threadIdx.x == 0) scratch[kNb] = nb;
+}
+
+// resident blocks of merge_path_kernel<T> on one card, per device
+template <typename T>
+int resident_blocks(int* out) {
+  static int cached[64] = {};
+  int dev = 0;
+  int err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 64 && cached[dev]) {
+    *out = cached[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, merge_path_kernel<T>, kThreads, 0);
+  if (err) return err;
+  *out = sms * per_sm;
+  if (dev < 64) cached[dev] = *out;
+  return 0;
 }
 
 template <typename T>
-int launch_scatter(const void* buf, int64_t cap, const void* fresh, int64_t nf,
-                   const void* keep, const void* rank, const void* kcum,
-                   void* out, void* stats, void* stream) {
-  const int64_t work = cap > nf ? cap : nf;
-  merge_scatter_kernel<T><<<repro::grid_for(work), repro::kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(buf), cap, static_cast<const T*>(fresh), nf,
-      static_cast<const int32_t*>(keep), static_cast<const int64_t*>(rank),
-      static_cast<const int64_t*>(kcum), static_cast<T*>(out),
-      static_cast<int64_t*>(stats));
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* buf_, int64_t cap, int64_t nb, const void* fresh_,
+           int64_t nf, void* out_, void* scratch_, int64_t scratch_words,
+           void* stream_) {
+  constexpr int kTile = kThreads * Tile<T>::kItems;
+  const auto* buf = static_cast<const T*>(buf_);
+  const auto* fresh = static_cast<const T*>(fresh_);
+  auto* out = static_cast<T*>(out_);
+  auto* scratch = static_cast<int64_t*>(scratch_);
+  auto stream = static_cast<cudaStream_t>(stream_);
+  // tiles cover at most cap + nf inputs; the grid never has more blocks
+  const int64_t max_tiles = (cap + nf + kTile - 1) / kTile;
+  if (nb < -1 || nb > cap || scratch_words < kStatus + max_tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = cudaMemsetAsync(scratch, 0, scratch_words * sizeof(int64_t), stream);
+  if (err) return err;
+  if (nb < 0) {
+    merge_count_kernel<T><<<1, 32, 0, stream>>>(buf, cap, scratch);
+    err = cudaGetLastError();
+    if (err) return err;
+  }
+  int resident = 0;
+  err = resident_blocks<T>(&resident);
+  if (err) return err;
+  const unsigned grid =
+      static_cast<unsigned>(max(int64_t{1}, min(max_tiles, int64_t{resident})));
+  void* args[] = {&buf, &cap, &nb, &fresh, &nf, &out, &scratch};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&merge_path_kernel<T>), dim3(grid),
+      dim3(kThreads), args, 0, stream));
 }
 
 }  // namespace
 
-extern "C" int repro_merge_rank_i32(const void* buf, int64_t cap,
-                                    const void* fresh, int64_t nf, void* keep,
-                                    void* rank, void* stream) {
-  return launch_rank<int32_t>(buf, cap, fresh, nf, keep, rank, stream);
+// ``count`` is the number of codes ``buf`` holds, or -1 when the caller
+// does not know it; ``scratch`` holds at least 4 + ceil((cap + nf) /
+// tile) int64 words (tile: 7,936 int32 or 3,840 int64 positions).
+extern "C" int repro_merge_sorted_unique_i32(const void* buf, int64_t cap,
+                                             int64_t count, const void* fresh,
+                                             int64_t nf, void* out,
+                                             void* scratch,
+                                             int64_t scratch_words,
+                                             void* stream) {
+  return launch<int32_t>(buf, cap, count, fresh, nf, out, scratch,
+                         scratch_words, stream);
 }
 
-extern "C" int repro_merge_rank_i64(const void* buf, int64_t cap,
-                                    const void* fresh, int64_t nf, void* keep,
-                                    void* rank, void* stream) {
-  return launch_rank<int64_t>(buf, cap, fresh, nf, keep, rank, stream);
-}
-
-extern "C" int repro_merge_scatter_i32(const void* buf, int64_t cap,
-                                       const void* fresh, int64_t nf,
-                                       const void* keep, const void* rank,
-                                       const void* kcum, void* out, void* stats,
-                                       void* stream) {
-  return launch_scatter<int32_t>(buf, cap, fresh, nf, keep, rank, kcum, out,
-                                 stats, stream);
-}
-
-extern "C" int repro_merge_scatter_i64(const void* buf, int64_t cap,
-                                       const void* fresh, int64_t nf,
-                                       const void* keep, const void* rank,
-                                       const void* kcum, void* out, void* stats,
-                                       void* stream) {
-  return launch_scatter<int64_t>(buf, cap, fresh, nf, keep, rank, kcum, out,
-                                 stats, stream);
+extern "C" int repro_merge_sorted_unique_i64(const void* buf, int64_t cap,
+                                             int64_t count, const void* fresh,
+                                             int64_t nf, void* out,
+                                             void* scratch,
+                                             int64_t scratch_words,
+                                             void* stream) {
+  return launch<int64_t>(buf, cap, count, fresh, nf, out, scratch,
+                         scratch_words, stream);
 }

@@ -104,25 +104,6 @@ struct Vec<int32_t> {
   }
 };
 
-// #{k < n : x[k] <= v} for ascending x, by one whole warp: each step every
-// lane probes one of 32 evenly spaced positions of [lo, hi) and a ballot
-// keeps the one stretch where the answer lies.  Every lane returns it.
-__device__ __forceinline__ int64_t warp_upper_bound(
-    const int64_t* __restrict__ x, int64_t n, int64_t v) {
-  const int lane = threadIdx.x & 31;
-  int64_t lo = 0, hi = n;  // the answer is in [lo, hi]
-  while (lo < hi) {
-    const int64_t step = (hi - lo + 31) >> 5;
-    const int64_t p = lo + (lane + 1) * step - 1;
-    const bool le = p < hi && x[p] <= v;
-    const int c = __popc(__ballot_sync(0xffffffffu, le));
-    const int64_t cut = lo + (c + 1) * step - 1;  // x[cut] > v when < hi
-    lo += c * step;
-    if (cut < hi) hi = cut;
-  }
-  return lo;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rle_expand_kernel(const T* __restrict__ values,
@@ -141,7 +122,10 @@ rle_expand_kernel(const T* __restrict__ values,
 
   // 1. the runs covering the tile's first and last outputs
   if (warp < 2) {
-    const int64_t k = warp_upper_bound(ends, r, warp == 0 ? s : e - 1);
+    const int64_t v = warp == 0 ? s : e - 1;
+    // #{k < r : ends[k] <= v}
+    const int64_t k =
+        repro::warp_search(0, r, [=](int64_t i) { return ends[i] <= v; });
     if (lane == 0) bounds[warp] = k;
   }
   for (int i = tid * 4; i < Tile<T>::kSize; i += kThreads * 4) {

@@ -30,45 +30,13 @@
 // No special case for the sentinel: padding in ``b`` is its last bucket,
 // and a padded probe finds it there or nowhere.  Duplicates in ``b`` fall
 // in one bucket.
+#include "buckets.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = repro::kThreads;
 constexpr int kProbes = 4;  // consecutive probes per thread
-
-template <typename T>
-struct Unsigned;
-template <>
-struct Unsigned<int32_t> {
-  using type = uint32_t;
-};
-template <>
-struct Unsigned<int64_t> {
-  using type = uint64_t;
-};
-
-// The key span of ``b``, [b[0], b[m - 1]], cut into 2^tbits buckets;
-// every thread reads the two ends (the same two lines for all).
-template <typename T>
-struct Buckets {
-  using U = typename Unsigned<T>::type;
-  T lo, hi;
-  int shift;
-
-  __device__ Buckets(const T* __restrict__ b, int64_t m, int tbits)
-      : lo(b[0]), hi(b[m - 1]) {
-    const U range = static_cast<U>(hi) - static_cast<U>(lo);
-    const int bits = range ? 8 * static_cast<int>(sizeof(U)) - clz(range) : 0;
-    shift = bits > tbits ? bits - tbits : 0;
-  }
-  __device__ static int clz(uint32_t v) { return __clz(v); }
-  __device__ static int clz(uint64_t v) { return __clzll(v); }
-  // bucket of lo <= x <= hi, in [0, 2^tbits)
-  __device__ int64_t of(T x) const {
-    return static_cast<int64_t>((static_cast<U>(x) - static_cast<U>(lo)) >> shift);
-  }
-};
 
 // start[t] = #{k : bucket(b[k]) < t} for every bucket t that holds a key
 // and for the bucket after it; thread k writes the entries from the bucket
@@ -82,7 +50,7 @@ constexpr int64_t kGapWrites = 64;
 template <typename T>
 __global__ void bucket_table_kernel(const T* __restrict__ b, int64_t m,
                                     int tbits, int32_t* __restrict__ start) {
-  const Buckets<T> bk(b, m, tbits);
+  const repro::Buckets<T> bk(b, m, tbits);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        k <= m; k += stride) {
@@ -130,7 +98,7 @@ bucket_probe_kernel(const T* __restrict__ a, int64_t n,
                     uint8_t* __restrict__ out) {
   constexpr T kBig = repro::Sentinel<T>::value;
   constexpr int64_t kScan = 32 / sizeof(T);  // keys left for the scan
-  const Buckets<T> bk(b, m, tbits);
+  const repro::Buckets<T> bk(b, m, tbits);
   const int64_t groups = (n + kProbes - 1) / kProbes;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;

@@ -9,9 +9,10 @@ TPU module ``repro/kernels/fused.py``.
   ``pack_pairs``; its output folds into an int32 :class:`FactBuffers`.
 * :func:`merge_sorted_unique` ports ``merge_sorted_unique``
   (``_merge_impl``, TPU body ``_merge_kernel``) as
-  ``csrc/merge_sorted_unique.cu``: a rank launch, a ``torch.cumsum`` of the
-  keep flags, and a scatter launch.  The result goes to a second buffer of
-  the same capacity (``out``), never over ``buf``; :class:`FactBuffers`
+  ``csrc/merge_sorted_unique.cu``: one merge-path pass over both inputs
+  with a decoupled look-back, one launch (two when the caller does not
+  know how many codes ``buf`` holds).  The result goes to a second buffer
+  of the same capacity (``out``), never over ``buf``; :class:`FactBuffers`
   holds such a pair per predicate and swaps them after each merge.
 """
 
@@ -27,6 +28,10 @@ __all__ = ["fused_join_dedup", "merge_sorted_unique"]
 _SCAN_TILE = 1024
 #: spans are int32, as on the TPU
 _MAX_RIGHT = 2**31 - 1
+#: merged positions per tile of the merge kernel (256 threads x 31 int32
+#: or 15 int64 items), and its scratch words before the per-tile ones
+_MERGE_TILE = {torch.int32: 256 * 31, torch.int64: 256 * 15}
+_MERGE_WORDS = 4
 
 
 def fused_join_dedup(l_keys: torch.Tensor, l_payload: torch.Tensor,
@@ -108,9 +113,13 @@ def merge_sorted_unique(buf: torch.Tensor, fresh: torch.Tensor,
     ``buf`` (int64 tensors of shape ``(1,)``).  ``merged`` is ``out``
     when given (same shape and type as ``buf``, a different buffer),
     else a new tensor.  ``count``, when the caller keeps it, is the
-    number of codes ``buf`` holds; only the launch meter records it (the
-    kernel finds it by itself).  CPU tensors take the plain version; any
-    other device launches the kernels or raises."""
+    number of codes ``buf`` holds: the kernel then skips finding it
+    (one launch instead of two).  It must lie in ``[0, len(buf)]``; on
+    the CPU it must equal the number of non-sentinel codes in ``buf``,
+    while the card trusts it unchecked (checking would cost a host sync):
+    a wrong ``count`` there gives a wrong merge.
+    CPU tensors take the plain version; any other device launches the
+    kernel or raises."""
     ops.check_keys("merge_sorted_unique", buf, fresh)
     if out is not None:
         if out.shape != buf.shape or out.dtype != buf.dtype or out.device != buf.device:
@@ -119,28 +128,26 @@ def merge_sorted_unique(buf: torch.Tensor, fresh: torch.Tensor,
             raise ValueError("merge_sorted_unique: out must be contiguous")
         if out.data_ptr() == buf.data_ptr() and buf.numel():
             raise ValueError("merge_sorted_unique: out must not alias buf")
-    if buf.device.type == "cpu":
+    cap, nf = buf.shape[0], fresh.shape[0]
+    if count is not None and not 0 <= count <= cap:
+        raise ValueError(f"merge_sorted_unique: count {count} outside [0, {cap}]")
+    if buf.is_cpu:
+        if count is not None and count != int((buf != ref.sentinel(buf.dtype)).sum()):
+            raise ValueError(f"merge_sorted_unique: buf does not hold {count} codes")
         return ref.merge_sorted_unique(buf, fresh, out)
     dev = buf.device
-    cap, nf = buf.shape[0], fresh.shape[0]
     if out is None:
         out = torch.empty_like(buf)
-    keep = torch.empty(nf, dtype=torch.int32, device=dev)
-    rank = torch.empty(nf, dtype=torch.int64, device=dev)
-    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    # the totals, the kernel's words and one status word per tile
+    words = _MERGE_WORDS + -(-(cap + nf) // _MERGE_TILE[buf.dtype])
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     ops.launch(
-        "merge_sorted_unique", "repro_merge_rank", buf.dtype, dev,
-        buf.data_ptr(), cap, fresh.data_ptr(), nf,
-        keep.data_ptr(), rank.data_ptr(),
-    )
-    kcum = torch.cumsum(keep, 0, dtype=torch.int64)
-    ops.launch(
-        "merge_sorted_unique", "repro_merge_scatter", buf.dtype, dev,
-        buf.data_ptr(), cap, fresh.data_ptr(), nf, keep.data_ptr(),
-        rank.data_ptr(), kcum.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        "merge_sorted_unique", "repro_merge_sorted_unique", buf.dtype, dev,
+        buf.data_ptr(), cap, -1 if count is None else count, fresh.data_ptr(), nf,
+        out.data_ptr(), scratch.data_ptr(), words,
     )
     shape = {"cap": cap, "fresh": nf}
     if count is not None:
         shape["count"] = count
     ops.note_launch("merge_sorted_unique", **shape)
-    return out, stats[0:1], stats[1:2]
+    return out, scratch[0:1], scratch[1:2]

@@ -34,6 +34,13 @@ from repro_torch.kernels import (
     rle_expand,
     sorted_member,
 )
+from repro_torch.kernels.join_bounds import (
+    PATHS,
+    THREAD_KEYS,
+    WARP_KEYS,
+    join_bounds_by,
+    route,
+)
 
 BIG32 = np.iinfo(np.int32).max
 BIG64 = np.iinfo(np.int64).max
@@ -109,6 +116,63 @@ def test_join_bounds_int32_vs_pallas(n, m):
     assert_array_equal(hi.numpy(), np.asarray(jhi))
     assert_array_equal(lo.numpy(), np.asarray(rlo))
     assert_array_equal(hi.numpy(), np.asarray(rhi))
+
+
+def _join_edge(case, rng):
+    """``(l, r)`` int32 of one ``join_bounds`` edge case."""
+    if case == "gap-clustered":
+        # two far clusters of r: buckets in the gap hold no key, yet a key
+        # there needs its exact position
+        r = np.sort(np.concatenate([rng.integers(0, 300, 400),
+                                    rng.integers(2**30, 2**30 + 300, 400)]))
+        l = np.concatenate([rng.integers(300, 2**30, 300), r[::7], [299, 300, 2**30 - 1]])
+    elif case == "out-of-span":
+        r = np.sort(rng.integers(10**6, 2 * 10**6, 900))
+        l = np.concatenate([rng.integers(0, 10**6, 200), rng.integers(2 * 10**6, 2**31 - 2, 200),
+                            r[[0, -1]], r[[0, -1]] + [-1, 1], r[::50]])
+    elif case == "all-equal":
+        r = np.full(1500, 77)
+        l = rng.integers(70, 85, 333)
+    else:  # duplicate runs in r longer than any bucket, duplicates in l
+        r = np.sort(np.repeat(rng.integers(0, 5000, 40), 60))
+        l = np.repeat(np.concatenate([r[::97], rng.integers(0, 5000, 20)]), 3)
+    return rng.permutation(l).astype(np.int32), r.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["gap-clustered", "out-of-span", "all-equal", "duplicate-runs"])
+def test_join_bounds_edges_vs_pallas(case):
+    """The cases the card's bucket table and its search path are sensitive
+    to, against the Pallas kernel in interpret mode and searchsorted."""
+    l, r = _join_edge(case, np.random.default_rng(41))
+    lo, hi = join_bounds(_t(l), _t(r))
+    jlo, jhi = j_join_bounds(l, r, interpret=True)
+    assert_array_equal(lo.numpy(), np.asarray(jlo))
+    assert_array_equal(hi.numpy(), np.asarray(jhi))
+    assert_array_equal(lo.numpy(), np.searchsorted(r, l, side="left"))
+    assert_array_equal(hi.numpy(), np.searchsorted(r, l, side="right"))
+    if case == "out-of-span":
+        below, above = l < r[0], l > r[-1]
+        assert below.any() and above.any()
+        assert (lo.numpy()[below] == 0).all() and (hi.numpy()[above] == r.size).all()
+
+
+@pytest.mark.parametrize("n,m,path", [
+    (500, 1_000_000, "warp"), (WARP_KEYS, 4_000_000, "warp"), (5_000, 0, "warp"),
+    (0, 0, "warp"), (WARP_KEYS + 1, 4_000_000, "thread"), (10_000, 2_999_718, "warp"),
+    (THREAD_KEYS, THREAD_KEYS, "thread"), (30_000, 1_000, "thread"),
+    (THREAD_KEYS + 1, 1_000, "table"), (4_000_000, 4_000_000, "table"),
+])
+def test_join_bounds_route(n, m, path):
+    assert route(n, m) == path
+
+
+def test_join_bounds_by_runs_on_the_card_only():
+    a = torch.arange(10, dtype=torch.int64)
+    for path in PATHS:
+        with pytest.raises(ValueError, match="card only"):
+            join_bounds_by(a, a, path)
+    with pytest.raises(ValueError, match="no path"):
+        join_bounds_by(a, a, "bisect")
 
 
 def test_join_bounds_int64_vs_searchsorted():
@@ -192,6 +256,65 @@ def test_merge_sorted_unique_int32_vs_pallas(nb, nf, cap, overlap):
     assert_array_equal(merged.numpy(), r_merged)
     assert int(cnt[0]) == int(j_cnt[0]) == r_cnt
     assert int(n_new[0]) == int(j_new[0]) == r_new
+
+
+@pytest.mark.parametrize("run", [7, 1100, 9000])
+def test_merge_sorted_unique_duplicate_runs_vs_pallas(run):
+    """Runs of equal fresh values longer than a card tile (7,936 int32
+    positions) and shorter: one copy of each is kept, none of a value
+    already buffered."""
+    rng = np.random.default_rng(run)
+    old = np.unique(rng.integers(0, 2**20, 300).astype(np.int32))
+    buf = _pad32(old, 1024 - old.size)
+    values = np.concatenate([old[::40], rng.integers(2**20, 2**21, 12).astype(np.int32)])
+    fresh = np.sort(np.repeat(values, run))
+    merged, cnt, n_new = merge_sorted_unique(_t(buf), _t(fresh))
+    j_merged, j_cnt, j_new = j_merge(buf, fresh, interpret=True)
+    assert_array_equal(merged.numpy(), np.asarray(j_merged))
+    assert (int(cnt[0]), int(n_new[0])) == (int(j_cnt[0]), int(j_new[0]))
+    assert int(n_new[0]) == np.setdiff1d(values, old).size
+
+
+def test_merge_sorted_unique_fresh_inside_buf_vs_pallas():
+    """Every fresh value already buffered: nothing new, and the slots the
+    dropped values would have taken hold the sentinel."""
+    rng = np.random.default_rng(19)
+    old = np.unique(rng.integers(0, 2**30, 3000).astype(np.int32))
+    buf = _pad32(old, 8192 - old.size)
+    fresh = _pad32(old[1::2], 40)
+    merged, cnt, n_new = merge_sorted_unique(_t(buf), _t(fresh))
+    j_merged, j_cnt, j_new = j_merge(buf, fresh, interpret=True)
+    assert_array_equal(merged.numpy(), np.asarray(j_merged))
+    assert (int(cnt[0]), int(n_new[0])) == (int(j_cnt[0]), int(j_new[0])) == (old.size, 0)
+    assert_array_equal(merged.numpy(), buf)
+
+
+def test_merge_sorted_unique_rejects_bad_count_and_aliased_out():
+    buf = torch.full((128,), BIG64)
+    buf[:10] = torch.arange(10)
+    fresh = torch.arange(5, 20, dtype=torch.int64)
+    for bad in (-1, 129):
+        with pytest.raises(ValueError, match="outside"):
+            merge_sorted_unique(buf, fresh, count=bad)
+    with pytest.raises(ValueError, match="does not hold"):
+        merge_sorted_unique(buf, fresh, count=9)
+    with pytest.raises(ValueError, match="alias"):
+        merge_sorted_unique(buf, fresh, out=buf)
+    merged, cnt, n_new = merge_sorted_unique(buf, fresh, count=10)
+    assert (int(cnt[0]), int(n_new[0])) == (20, 10)
+    assert_array_equal(merged.numpy()[:20], np.arange(20))
+
+
+def test_fact_buffers_raise_on_merge_overflow(monkeypatch):
+    """A merge whose total outgrows the buffer (here: the grow-before-merge
+    step skipped) raises instead of dropping codes."""
+    from repro_torch.kernels.buffers import FactBuffers
+
+    buffers = FactBuffers("cpu", initial_capacity=128)
+    buffers.merge("P", torch.arange(100, dtype=torch.int64))
+    monkeypatch.setattr(FactBuffers, "ensure", lambda self, pred, need=None: self._front[pred])
+    with pytest.raises(RuntimeError, match="overflow"):
+        buffers.merge("P", torch.arange(100, 200, dtype=torch.int64))
 
 
 def test_merge_sorted_unique_fills_exactly_and_pads_fresh():

@@ -3,8 +3,10 @@
 The script times each kernel at the operand lengths the launch meter
 recorded on the full-size run; these tests hold its input builder and its
 bytes bound to those lengths at a small size, and run every case it holds
-``sorted_member`` and ``rle_expand`` to through the port's plain version
-and the JAX package's Pallas kernel (interpret mode).
+``sorted_member``, ``join_bounds``, ``rle_expand`` and
+``merge_sorted_unique`` to, and the CMat run's own ``join_bounds``
+launches, through the port's plain version and the JAX package's Pallas
+kernel (interpret mode).
 """
 
 from __future__ import annotations
@@ -17,9 +19,11 @@ import pytest
 import torch
 from numpy.testing import assert_array_equal
 
+from repro.kernels.fused import merge_sorted_unique as j_merge
+from repro.kernels.join_bounds import join_bounds as j_join_bounds
 from repro.kernels.rle_expand import rle_expand as j_rle_expand
 from repro.kernels.sorted_member import sorted_member as j_sorted_member
-from repro_torch.kernels import ref, rle_expand, sorted_member
+from repro_torch.kernels import join_bounds, merge_sorted_unique, ref, rle_expand, sorted_member
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -60,7 +64,15 @@ def test_timed_case_has_the_metered_lengths(smoke, name, dtype):
         a, b = args
         assert (a.shape[0], b.shape[0]) == (sh["n"], sh["m"])
         assert torch.equal(b, torch.unique(b))
-        want = (sh["n"] + sh["m"]) * size + (1 if name == "sorted_member" else 8) * sh["n"]
+        # of b, the 32-byte sectors holding the keys on either side of
+        # each bound
+        sides = ("left",) if name == "sorted_member" else ("left", "right")
+        bounds = [np.searchsorted(b.numpy(), a.numpy(), side) for side in sides]
+        at = np.concatenate([x + d for x in bounds for d in (-1, 0)])
+        at = at[(at >= 0) & (at < sh["m"])]
+        sectors = np.unique((b.data_ptr() % 32 + at * size) // 32).shape[0]
+        deciding = min(sh["m"] * size, 32 * sectors)
+        want = sh["n"] * size + deciding + (1 if name == "sorted_member" else 8) * sh["n"]
     elif name == "rle_expand":
         vals, counts, total = args
         assert (vals.shape[0], total, int(counts.sum())) == (sh["runs"], sh["total"], sh["total"])
@@ -78,6 +90,19 @@ def test_timed_case_has_the_metered_lengths(smoke, name, dtype):
     assert smoke._bytes(name, args, size) == want
     assert smoke.LIBRARY_CALLS[name].startswith("torch.")
     smoke._library_call(name, args)()  # the yardstick runs on these inputs
+
+
+@pytest.mark.parametrize("name", ["sorted_member", "join_bounds"])
+def test_search_bound_reads_only_the_deciding_keys(smoke, name):
+    """A search's bytes bound counts of its sorted side only the sectors
+    that decide the answers: one sector for keys all above (or all below)
+    its span, all of it for keys spread over every gap."""
+    r = torch.arange(0, 80_000, 8, dtype=torch.int64)  # 10,000 keys, 2,500 sectors
+    out = 1 if name == "sorted_member" else 8
+    for l, sectors in [(r[-1] + 1 + torch.arange(300), 1), (r[0] - 1 - torch.arange(300), 1),
+                       (r + 3, 2_500)]:
+        n = l.shape[0]
+        assert smoke._bytes(name, (l, r), 8) == n * 8 + 32 * sectors + out * n
 
 
 @pytest.mark.parametrize("m", [40, 40_000])
@@ -125,9 +150,20 @@ def test_join_cases_have_the_metered_pairs(smoke, pairs):
                      torch.int32, torch.device("cpu"), np.random.default_rng(6))
 
 
-#: every case ``chip_smoke.py`` holds the two redesigned kernels to on the
-#: card, mirrored here in int32 against the Pallas kernels
+#: every case ``chip_smoke.py`` holds the four redesigned kernels to on
+#: the card, mirrored here in int32 against the Pallas kernels
 MIRRORED = {
+    "join_bounds": [
+        "full", "empty-a", "empty-b", "sentinel-padding", "all-sentinel", "sentinel-padded-r",
+        "gap-probes",
+        "out-of-span", "all-r-equal", "m-1", "duplicates-in-l", "n-ragged",
+        "unaligned-views", "long-runs-in-r", "out-of-span-few-keys", "many-long-gaps",
+    ],
+    "merge_sorted_unique": [
+        "full", "empty-buf-empty-fresh", "all-sentinel-buf", "duplicates", "fills-exactly",
+        "truncates", "padded-fresh", "runs-across-tiles", "fresh-inside-buf",
+        "cut-mid-tile", "cap-far-above-inputs",
+    ],
     "sorted_member": [
         "full", "empty-a", "empty-b", "sentinel-padding", "all-sentinel", "m-1",
         "duplicates-in-b", "sentinel-padding-long-b", "n-ragged",
@@ -149,11 +185,33 @@ def _int32_cases(smoke, name):
     "name,label", [(n, lab) for n, labels in MIRRORED.items() for lab in labels]
 )
 def test_kernel_cases_match_pallas(smoke, name, label):
-    """Each card case of ``sorted_member`` and ``rle_expand`` through the
-    port's wrapper (its plain version here) and the JAX package's Pallas
-    kernel in interpret mode, int32, exactly."""
+    """Each card case of the redesigned kernels through the port's wrapper
+    (its plain version here) and the JAX package's Pallas kernel in
+    interpret mode, int32, exactly."""
     (args,) = [a for lab, a, _ in _int32_cases(smoke, name) if lab == label]
-    if name == "sorted_member":
+    if name == "join_bounds":
+        l, r = args
+        got = np.stack([x.numpy() for x in join_bounds(l, r)])
+        want = np.stack([np.asarray(x) for x in j_join_bounds(l.numpy(), r.numpy(),
+                                                             interpret=True)])
+        assert_array_equal(got, np.stack([np.searchsorted(r.numpy(), l.numpy(), side)
+                                          for side in ("left", "right")]))
+        # the Pallas kernel pads r to its block with the sentinel, which a
+        # sentinel key (itself padding) then counts as equal: compare the
+        # other keys
+        real = l.numpy() != ref.sentinel(torch.int32)
+        got, want = got[:, real], want[:, real]
+    elif name == "merge_sorted_unique":
+        buf, fresh = args
+        merged, count, n_new = merge_sorted_unique(buf, fresh)
+        j_merged, j_count, j_new = j_merge(buf.numpy(), fresh.numpy(), interpret=True)
+        assert (int(count[0]), int(n_new[0])) == (int(j_count[0]), int(j_new[0]))
+        got, want = merged.numpy(), np.asarray(j_merged)
+        if label == "fresh-inside-buf":
+            assert int(n_new[0]) == 0 and int(count[0]) < buf.shape[0] // 2
+        if label == "cut-mid-tile":
+            assert int(count[0]) > buf.shape[0]
+    elif name == "sorted_member":
         a, b = args
         got = sorted_member(a, b).numpy()
         want = np.asarray(j_sorted_member(a.numpy(), b.numpy(), interpret=True))
@@ -169,6 +227,31 @@ def test_kernel_cases_match_pallas(smoke, name, label):
         assert int(counts.max()) >= 0.9 * total
     if label == "ragged-tail":
         assert total % 4 and total % 2
+
+
+@pytest.mark.parametrize("label,shape", [
+    ("cmat-disjoint", {"n": 3001, "m": 2000, "l_values": 10, "r_values": 1000}),
+    ("cmat-xjoin", {"n": 100, "m": 3001}),
+])
+def test_main_path_cases_match_pallas(smoke, label, shape):
+    """The CMat run's own ``join_bounds`` launches, at a small size: every
+    left key above every right key (no pairs), or distinct left keys that
+    the right keys repeat (each left key matched)."""
+    l, r = smoke._timed_args("join_bounds", label, shape, torch.int32, torch.device("cpu"),
+                             np.random.default_rng(8))
+    assert (l.shape[0], r.shape[0]) == (shape["n"], shape["m"])
+    assert torch.equal(r, torch.sort(r).values)
+    lo, hi = join_bounds(l, r)
+    jlo, jhi = j_join_bounds(l.numpy(), r.numpy(), interpret=True)
+    assert_array_equal(lo.numpy(), np.asarray(jlo))
+    assert_array_equal(hi.numpy(), np.asarray(jhi))
+    if label == "cmat-disjoint":
+        assert (lo == shape["m"]).all() and (hi == shape["m"]).all()
+        assert torch.unique(l).shape[0] == shape["l_values"]
+        assert torch.unique(r).shape[0] == shape["r_values"]
+    else:
+        assert torch.unique(l).shape[0] == shape["n"] and bool((hi > lo).all())
+        assert int((hi - lo).sum()) == shape["m"]
 
 
 def test_mirrored_cases_are_every_card_case(smoke):
