@@ -31,6 +31,8 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        store through ``fused_join_dedup`` (regrown to its
                        pair total), merged into an int32 ``FactBuffers``
                        seeded with the head relation: nothing may be new;
+                       each rule's inputs equal to the flat oracle's, every
+                       launch recorded and matched by the launch meter;
 7. kernels           — each kernel against its plain PyTorch version on the
                        card (int32 and int64; ``fused_join_dedup`` int32
                        only): seeded inputs at the operand lengths of its
@@ -43,16 +45,20 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        distributed ``apply``'s largest launch in int32,
                        ``join_bounds`` also at the CMat run's own two
                        largest launches, ``CMAT_DISJOINT`` and
-                       ``CMAT_XJOIN``, and the merge at the closure's
-                       largest launch in int32): kernel and library call
-                       timed in alternating turns (kernel, library, library,
+                       ``CMAT_XJOIN``, the merge at the closure's largest
+                       launch in int32, ``fused_join_dedup`` also at each
+                       of the closure's own five launches,
+                       ``closure-<head>-<capacity>``, rebuilt from the flat
+                       oracle of its KB): kernel and library call timed
+                       in alternating turns (kernel, library, library,
                        kernel, five times; medians of CUDA-event means), the
                        device-only time of each from ``torch.profiler`` (and
                        the kernels it ran per call: the merge, called with
-                       its ``count`` as ``FactBuffers`` calls it, must run
-                       one kernel and no library scan), the kernel's host
-                       time per call, the plain version's time and the
-                       bytes bound;
+                       its ``count`` as ``FactBuffers`` calls it, and the
+                       join must each run one kernel and no library scan or
+                       sort), the kernel's host time per call, the plain
+                       version's time and the bytes bound; the
+                       ``join_bounds`` path sweep;
 8. syncs             — the phase-3 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
 9. profile           — only with ``--profile``: one more load and
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -169,22 +176,28 @@ def host_ms(fn, reps: int = 20) -> float:
     return t * 1e3 / reps
 
 
-def device_ms(fn, reps: int = 20) -> tuple[float | None, dict[str, float]]:
+def device_ms(fn, reps: int = 20, tries: int = 3) -> tuple[float | None, dict[str, float]]:
     """Device time of one call of ``fn`` from ``torch.profiler``: the self
     device time of every kernel, copy and set the card ran over ``reps``
     calls, over ``reps`` (``None`` when the trace holds no device time);
-    and how many times per call the card ran each of them, by name."""
+    and how many times per call the card ran each of them, by name.  A
+    trace that holds no device activity at all is the profiler's failure
+    (it happens on the card's host now and then), so it is taken again, up
+    to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
     us = sum(_device_us(e) for e in dev)
     return (us / reps / 1e3 if us else None), {e.key: e.count / reps for e in dev}
 
@@ -408,6 +421,8 @@ def _cases(name, shape, dtype, dev, rng):
 #: distinct left keys
 CMAT_DISJOINT = {"n": 3_993_727, "m": 3_993_727, "l_values": 1_000, "r_values": 1_000_000}
 CMAT_XJOIN = {"n": 10_000, "m": 2_999_718}
+#: the closure's first capacity, before a regrow
+CLOSURE_FIRST_CAPACITY = 4096
 
 
 def _main_path_case(label, shape, dtype, dev, rng):
@@ -438,8 +453,74 @@ def _timed_args(name, label, shape, dtype, dev, rng):
     ``shape``."""
     if label in ("cmat-disjoint", "cmat-xjoin"):
         return _main_path_case(label, shape, dtype, dev, rng)
+    if label.startswith("closure-"):
+        return _closure_case(shape, dev)
     (args,) = [a for lab, a, _ in _cases(name, shape, dtype, dev, rng) if lab == "full"]
     return args
+
+
+def _rows(facts, atom, dev):
+    """``atom``'s relation in ``facts`` as int32 rows on ``dev`` (none
+    when it holds no fact)."""
+    import torch
+
+    rows = facts.get(atom.predicate, torch.zeros((0, atom.arity), dtype=torch.int64))
+    return rows.to(dev, torch.int32)
+
+
+def closure_joins(program, facts, dev):
+    """``(rule, args)`` of every two-atom rule of ``program`` whose head
+    pairs a left-only and a right-only variable: ``args`` are
+    ``fused_join_dedup``'s ``[l_keys, l_payload, r_keys_sorted,
+    r_payload]`` over the shared variable, from ``facts`` (sorted unique
+    rows per predicate, as ``DistributedEngine.to_dict`` and the flat
+    oracle give them)."""
+    import torch
+
+    def col(rows, atom, var):
+        return rows[:, atom.terms.index(var)].contiguous()
+
+    for rule in program:
+        if len(rule.body) != 2 or rule.head.arity != 2:
+            continue
+        a, b = rule.body
+        x, z = rule.head.terms
+        shared = set(a.variables()) & set(b.variables())
+        if x not in a.variables() or x in shared or z not in b.variables() or z in shared:
+            continue
+        (k,) = shared
+        left, right = _rows(facts, a, dev), _rows(facts, b, dev)
+        r_keys, order = torch.sort(col(right, b, k), stable=True)
+        yield rule, [col(left, a, k), col(left, a, x), r_keys,
+                     col(right, b, z)[order].contiguous()]
+
+
+@functools.lru_cache(maxsize=2)
+def _kb_facts(kb: tuple) -> tuple:
+    """``lubm_like(**dict(kb))``'s program as the distributed engine runs
+    it and its flat oracle's materialisation on the CPU (about 0.1 s at
+    ``DIST_KB``), sorted unique rows per predicate."""
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.flat import flat_seminaive
+    from repro_torch.core.generators import lubm_like
+    from repro_torch.core.util import unique_rows
+
+    program, dataset, _ = lubm_like(**dict(kb))
+    program = DistributedEngine.supported_program(program)
+    facts = flat_seminaive(program, dataset, device="cpu")
+    return program, {p: unique_rows(r) for p, r in facts.items()}
+
+
+def _closure_case(shape, dev):
+    """The inputs of one of the closure's own launches, as
+    :func:`run_closure` records it (its KB, head predicate, lengths and
+    capacity), rebuilt from the flat oracle of that KB."""
+    (args,) = [a for rule, a in closure_joins(*_kb_facts(tuple(sorted(shape["kb"].items()))), dev)
+               if rule.head.predicate == shape["head"]]
+    if (args[0].shape[0], args[2].shape[0]) != (shape["n"], shape["m"]):
+        raise AssertionError(f"closure case {shape}: the oracle's join is "
+                             f"{args[0].shape[0]} x {args[2].shape[0]}")
+    return (*args, shape["capacity"])
 
 
 def _join_cases(shape, t, sorted_t, pad, empty, rng):
@@ -462,6 +543,10 @@ def _join_cases(shape, t, sorted_t, pad, empty, rng):
     # one key matched 3000 x 300 times: 900 k pairs over many sort tiles,
     # 30 k distinct codes
     skew = (full(3000, 7), t(np.arange(3000)), full(300, 7), t(np.arange(300) % 10))
+    # payloads past 15 bits: codes wrap to negative int32, the sort's top
+    # digit must keep them below the positive ones (about 30 k pairs)
+    wl, wr = t(rng.integers(0, 3000, size=30_000)), sorted_t(rng.integers(0, 3000, size=3000))
+    wide = (wl, t(rng.integers(0, 2**16, size=30_000)), wr, t(rng.integers(0, 2**20, size=3000)))
     return [
         ("full", (l_keys, l_pay, r_keys, r_pay, cap), True),
         ("empty-left", (empty, empty, sr, srp, 64), False),
@@ -472,6 +557,10 @@ def _join_cases(shape, t, sorted_t, pad, empty, rng):
         ("sentinel-left-keys", (pad(sl, 40), pad(slp, 40), pad(sr, 5), pad(srp, 5), 4096), False),
         ("disjoint-keys", (sl + 100, slp, sr, srp, 64), False),
         ("skewed-key", (*skew, 1 << 20), False),
+        ("wide-payloads", (*wide, 1 << 16), False),
+        # the regrow's first call at the largest launch: only the first
+        # 4,096 pairs in left-major order may enter the sort
+        ("closure-cut", (l_keys, l_pay, r_keys, r_pay, CLOSURE_FIRST_CAPACITY), False),
     ]
 
 
@@ -501,6 +590,19 @@ def _as_list(out):
     return list(out) if isinstance(out, tuple) else [out]
 
 
+def _sector_bytes(t, at):
+    """Bytes of the 32-byte sectors of ``t`` that hold the positions ``at``
+    (an int tensor; positions outside ``t`` ignored), at most all of
+    ``t``."""
+    import torch
+
+    m, size = t.shape[0], t.element_size()
+    at = at.to(torch.int64)
+    at = at[(at >= 0) & (at < m)]
+    sectors = torch.unique((t.data_ptr() % 32 + at * size) // 32).shape[0]
+    return min(m * size, 32 * sectors)
+
+
 def _deciding_bytes(keys, bounds):
     """Bytes of the sorted ``keys`` that any search must read to certify
     the positions ``bounds`` (an int tensor of lower or upper bounds): the
@@ -508,17 +610,39 @@ def _deciding_bytes(keys, bounds):
     most all of ``keys``.  A key outside the span needs only an end."""
     import torch
 
-    m, size = keys.shape[0], keys.element_size()
-    at = torch.cat([bounds - 1, bounds]).to(torch.int64)
-    at = at[(at >= 0) & (at < m)]
-    sectors = torch.unique((keys.data_ptr() % 32 + at * size) // 32).shape[0]
-    return min(m * size, 32 * sectors)
+    return _sector_bytes(keys, torch.cat([bounds - 1, bounds]))
+
+
+def _join_bytes(l_keys, l_pay, r_keys, r_pay, cap):
+    """Bytes ``fused_join_dedup`` must move: every left key; of the right
+    keys only the sectors that decide each left row's span (a sentinel key
+    matches nothing and needs none); the payloads only of the rows whose
+    pairs fall in the first ``cap`` in left-major order; ``cap`` codes and
+    the count written."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    live = torch.nonzero(l_keys != ref.sentinel(l_keys.dtype)).flatten()
+    lo = torch.searchsorted(r_keys, l_keys[live])
+    hi = torch.searchsorted(r_keys, l_keys[live], right=True)
+    take = torch.clamp(torch.minimum(hi - lo, cap - (torch.cumsum(hi - lo, 0) - (hi - lo))),
+                       min=0)
+    # the right rows of the kept pairs: lo .. lo + take - 1 of each row
+    first = torch.cumsum(take, 0) - take
+    r_rows = (torch.arange(int(take.sum()), device=lo.device)
+              + torch.repeat_interleave(lo - first, take))
+    size = l_keys.element_size()
+    return (l_keys.shape[0] * size + _deciding_bytes(r_keys, torch.cat([lo, hi]))
+            + _sector_bytes(l_pay, live[take > 0]) + _sector_bytes(r_pay, r_rows)
+            + cap * size + 4)
 
 
 def _bytes(name, args, dtype_size):
     """Bytes the function must move: each input read once, each output
     written once; of the sorted side of a search only what decides the
-    answers (:func:`_deciding_bytes`, from this run's data)."""
+    answers (:func:`_deciding_bytes`), of a join's payloads only those of
+    the pairs it keeps (:func:`_join_bytes`), from this run's data."""
     import torch
 
     if name == "sorted_member":
@@ -534,9 +658,7 @@ def _bytes(name, args, dtype_size):
         vals, counts, total = args
         return vals.shape[0] * (dtype_size + counts.element_size()) + total * dtype_size
     if name == "fused_join_dedup":
-        # keys and payloads read once, capacity codes written
-        l_keys, _, r_keys, _, cap = args
-        return (2 * l_keys.shape[0] + 2 * r_keys.shape[0] + cap) * dtype_size
+        return _join_bytes(*args)
     # only buf's occupied prefix is read; the merge writes all of buf's
     # length and two int64 stats
     buf, fresh = args
@@ -604,6 +726,10 @@ PATH_KERNELS = {
     "warp": ("join_bounds_warp_kernel",),
     "thread": ("join_bounds_thread_kernel",),
 }
+#: the one kernel of a ``fused_join_dedup`` call, as the profiler names it
+JOIN_KERNEL = "fjd_kernel"
+#: profiler traces taken, at most, for a check of which kernels ran
+TRACE_TRIES = 3
 
 
 def _check_equal(name, label, dtype, kernel, plain, args) -> int:
@@ -624,6 +750,8 @@ def _check_equal(name, label, dtype, kernel, plain, args) -> int:
         err = max(err, _compare(name, label, dtype, _as_list(call()), want))
     if name == "join_bounds":
         _check_paths_ran(label, dtype, args, calls)
+    if name == "fused_join_dedup":
+        _check_join_ran(label, args, calls[0])
     log(f"[kernels] {name} {str(dtype)[6:]} {label}: equal")
     return err
 
@@ -632,18 +760,55 @@ def _check_paths_ran(label, dtype, args, calls) -> None:
     """Profiled runs of a ``join_bounds`` case's calls (the routed one, then
     one per path) must have run exactly the kernels of those paths, none
     where a side is empty (counts per run rounded: the profiler may drop
-    the first kernel of its trace)."""
+    the first kernel of its trace).  The kernels run are fixed by the
+    inputs, so a trace that shows others lost events (the card's host
+    drops some now and then): it is taken again, up to ``TRACE_TRIES``
+    times in all."""
     from repro_torch.kernels.join_bounds import PATHS, route
 
     n, m = args[0].shape[0], args[1].shape[0]
     want = dict.fromkeys(k for ks in PATH_KERNELS.values() for k in ks)
     for k in want:
         want[k] = sum(k in PATH_KERNELS[p] for p in (route(n, m), *PATHS)) if n and m else 0
-    _, ran = device_ms(lambda: [c() for c in calls], reps=5)
-    got = {k: round(sum(c for key, c in ran.items() if k in key)) for k in want}
-    if got != want:
-        raise AssertionError(f"join_bounds {dtype} {label} ({n} x {m}, routed "
-                             f"{route(n, m)}): kernels run {got}, not {want}")
+    for _ in range(TRACE_TRIES):
+        _, ran = device_ms(lambda: [c() for c in calls], reps=5)
+        got = {k: round(sum(c for key, c in ran.items() if k in key)) for k in want}
+        if got == want:
+            return
+    raise AssertionError(f"join_bounds {dtype} {label} ({n} x {m}, routed "
+                         f"{route(n, m)}): kernels run {got}, not {want}")
+
+
+def _check_join_ran(label, args, call) -> None:
+    """Profiled ``fused_join_dedup`` calls must each have launched the
+    kernel once (the launch meter, which counts a launch once the entry has
+    queued it and read its total without error), and the profiler must show
+    no other kernel (memsets and copies aside) and at most one of it a call
+    (it may drop a short trace's kernels); at capacity 0 nothing runs.  A
+    trace that fails this is taken again, up to ``TRACE_TRIES`` times in
+    all, as in :func:`_check_paths_ran`."""
+    from repro_torch.kernels import ops
+
+    n, m, cap = args[0].shape[0], args[2].shape[0], args[4]
+    calls = 0
+
+    def counted():
+        nonlocal calls
+        calls += 1
+        return call()
+
+    for _ in range(TRACE_TRIES):
+        calls = 0
+        before = ops.launch_counts()["fused_join_dedup"]
+        _, ran = device_ms(counted, reps=5)
+        launched = ops.launch_counts()["fused_join_dedup"] - before
+        kernels = {k: c for k, c in ran.items() if not k.startswith(("Memset", "Memcpy"))}
+        ours = sum(c for k, c in kernels.items() if JOIN_KERNEL in k)
+        others = sum(c for k, c in kernels.items() if JOIN_KERNEL not in k)
+        if launched == (calls if cap else 0) and round(ours) <= 1 and not (cap and round(others)):
+            return
+    raise AssertionError(f"fused_join_dedup {label} ({n} x {m}, capacity {cap}): "
+                         f"{launched} launches metered, kernels run {kernels}")
 
 
 def _compare(name, label, dtype, got, want) -> int:
@@ -697,6 +862,14 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
         kernels > 1 or any("Scan" in k or "cumsum" in k for k in device_ops)
     ):
         raise AssertionError(f"merge_sorted_unique {label}: device work per call {device_ops}")
+    # the join is one kernel (a memset before it and the total's copy after
+    # it aside), no library scan or sort; the profiler may drop the first
+    # kernel of its trace, so a call reads at most one
+    if name == "fused_join_dedup" and (
+        round(kernels) != 1 or any(w in k for k in device_ops
+                                   for w in ("Scan", "cumsum", "Sort", "sort", "unique"))
+    ):
+        raise AssertionError(f"fused_join_dedup {label}: device work per call {device_ops}")
     return entry
 
 
@@ -1022,7 +1195,9 @@ def run_closure(eng) -> dict:
     """Apply each two-atom rule whose head is (left-only variable,
     right-only variable) once more through ``fused_join_dedup`` and fold
     the output into an int32 ``FactBuffers`` seeded with the head
-    relation: the store is closed, so nothing may be new."""
+    relation: the store is closed, so nothing may be new.  Each rule's
+    inputs must equal those the flat oracle gives (:func:`_closure_case`
+    rebuilds the timed cases from it); every launch is recorded."""
     import torch
 
     from repro_torch.core.distributed import pack_pairs
@@ -1031,55 +1206,50 @@ def run_closure(eng) -> dict:
 
     facts = eng.to_dict()
     dev = eng.device
-
-    def rel(atom):
-        rows = facts.get(atom.predicate, torch.zeros((0, atom.arity), dtype=torch.int64))
-        return rows.to(dev, torch.int32)
-
-    def col(rows, atom, var):
-        return rows[:, atom.terms.index(var)].contiguous()
+    oracle = {rule.head.predicate: args
+              for rule, args in closure_joins(*_kb_facts(tuple(sorted(DIST_KB.items()))), dev)}
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     buffers = FactBuffers(dev, dtype=torch.int32)
-    rules = 0
-    for rule in eng.program:
-        if len(rule.body) != 2 or rule.head.arity != 2:
-            continue
-        a, b = rule.body
-        x, z = rule.head.terms
-        shared = set(a.variables()) & set(b.variables())
-        if x not in a.variables() or x in shared or z not in b.variables() or z in shared:
-            continue
-        (k,) = shared
-        left, right = rel(a), rel(b)
-        r_keys, order = torch.sort(col(right, b, k), stable=True)
-        args = [col(left, a, k), col(left, a, x), r_keys, col(right, b, z)[order].contiguous()]
-        capacity = 4096
+    joins = []
+    for rule, args in closure_joins(eng.program, facts, dev):
+        head = rule.head.predicate
+        if not all(torch.equal(x, y) for x, y in zip(args, oracle[head])):
+            raise AssertionError(f"closure {rule}: inputs differ from the flat oracle's")
+        capacity = CLOSURE_FIRST_CAPACITY
         while True:
             out, count, total = fused_join_dedup(*args, capacity)
             p_out, p_count, p_total = ref.fused_join_dedup(*args, capacity)
             torch.cuda.synchronize()
             if total != p_total or not (torch.equal(out, p_out) and torch.equal(count, p_count)):
                 raise AssertionError(f"closure {rule}: kernel != plain version at capacity {capacity}")
+            joins.append({"kb": DIST_KB, "head": head, "n": args[0].shape[0],
+                          "m": args[2].shape[0], "capacity": capacity,
+                          "pairs": min(total, capacity)})
             if total <= capacity:
                 break
             capacity = 1 << (total - 1).bit_length()  # regrow and call again
-        head = rule.head.predicate
-        buffers.merge(head, torch.sort(pack_pairs(rel(rule.head))).values)
+        buffers.merge(head, torch.sort(pack_pairs(_rows(facts, rule.head, dev))).values)
         n_new = buffers.merge(head, out)
         log(f"[closure] {rule}: {args[0].shape[0]} x {args[2].shape[0]} rows, "
             f"{total} pairs, {int(count[0])} unique at capacity {capacity}, "
             f"n_new {n_new}")
         if n_new:
             raise AssertionError(f"closure {rule}: {n_new} new facts in a closed store")
-        rules += 1
     launches = ops.launch_counts()
-    log(f"[closure] {rules} rules, launches {launches}, largest "
+    shapes = ops.launch_shapes("fused_join_dedup")
+    log(f"[closure] {len(oracle)} rules, launches {launches}, largest "
         f"{ops.largest_launches()['fused_join_dedup']}")
-    if not rules or not launches["fused_join_dedup"] or not launches["merge_sorted_unique"]:
+    log(f"[closure] fused_join_dedup launch shapes (launch meter): {shapes}")
+    if not joins or not launches["fused_join_dedup"] or not launches["merge_sorted_unique"]:
         raise AssertionError("closure: fused_join_dedup or the int32 merge never launched")
-    return {"launches": launches, "largest_launch": ops.largest_launches()}
+    metered = sorted(tuple(sorted(shape.items())) for shape, c in shapes for _ in range(c))
+    recorded = sorted(tuple(sorted((k, v) for k, v in j.items() if k not in ("kb", "head")))
+                      for j in joins)
+    if metered != recorded:
+        raise AssertionError(f"closure: metered launches {metered}, recorded {recorded}")
+    return {"launches": launches, "largest_launch": ops.largest_launches(), "joins": joins}
 
 
 def count_syncs(program, dataset) -> int:
@@ -1153,7 +1323,7 @@ def profile_run(program, dataset) -> None:
     hand = ("bucket_table_kernel", "bucket_probe_kernel", "empty_b_kernel",
             "join_bounds_table_kernel", "join_bounds_probe_kernel",
             "join_bounds_warp_kernel", "join_bounds_thread_kernel", "rle_expand_kernel",
-            "merge_path_kernel", "merge_count_kernel")
+            "merge_path_kernel", "merge_count_kernel", "fjd_kernel")
     for phase, prepare in _profile_phases(program, dataset):
         call = prepare()
         torch.cuda.synchronize()
@@ -1260,6 +1430,10 @@ def main() -> int:
             ("distributed-apply", dist["apply_largest"]["join_bounds"], (torch.int32,)),
         ],
         "merge_sorted_unique": [("closure", closure_merge, (torch.int32,))],
+        # each of the closure's own launches, the regrow's cut first calls
+        # and the one that matches nothing among them
+        "fused_join_dedup": [(f"closure-{j['head']}-{j['capacity']}", j, (torch.int32,))
+                             for j in closure["joins"]],
     }
     kernel_numbers = check_kernels(torch.device("cuda"), shapes, extra)
     kernel_numbers["join_bounds"]["path_sweep"] = sweep_join_bounds(torch.device("cuda"))

@@ -50,10 +50,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "repro_merge_sorted_unique": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
     },
     "fused_join_dedup": {
-        "repro_fjd_count": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
-        "repro_fjd_emit": (
-            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-        ),
+        "repro_fused_join_dedup": (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
     },
 }
 #: libraries built for fewer key types than both

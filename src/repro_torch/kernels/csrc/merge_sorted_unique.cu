@@ -43,12 +43,14 @@
 // (``_merge_kernel``'s ``count`` and ``n_new``), [2] ``nb`` when the caller
 // did not give it (found by ``merge_count``, one warp, the only other
 // launch), [3] barrier arrivals, [4 ..) one status word per tile.  The
-// output goes to a second buffer, never over ``buf``.
+// output goes to a second buffer, never over ``buf``.  The look-back, the
+// grid barrier and the residency query are ``coop.cuh``'s.
 #include <cuda_pipeline.h>
 
 #include <cub/block/block_scan.cuh>
 
 #include "common.cuh"
+#include "coop.cuh"
 
 namespace {
 
@@ -66,41 +68,6 @@ struct Tile<int64_t> {
 };
 
 constexpr int kTotal = 0, kNew = 1, kNb = 2, kArrive = 3, kStatus = 4;
-// a tile's status word: its count, flagged as the tile's own (aggregate)
-// or as everything up to and including it (inclusive)
-constexpr uint64_t kAggregate = uint64_t{1} << 62;
-constexpr uint64_t kInclusive = uint64_t{1} << 63;
-constexpr uint64_t kValue = kAggregate - 1;
-// a wait longer than this is a fault: trap rather than hang the card
-constexpr uint64_t kSpinLimitNs = 2000000000ull;
-
-__device__ __forceinline__ uint64_t load_acquire(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(uint64_t* p, uint64_t v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// *p once it is at least ``least``
-__device__ uint64_t wait_for(const uint64_t* p, uint64_t least) {
-  uint64_t v = load_acquire(p);
-  if (v >= least) return v;
-  const uint64_t t0 = now_ns();
-  while ((v = load_acquire(p)) < least) {
-    __nanosleep(32);
-    if (now_ns() - t0 > kSpinLimitNs) __trap();
-  }
-  return v;
-}
 
 // The number of A's among the first d items of the merge of A and B
 // (ties: A first).
@@ -149,60 +116,6 @@ __device__ __forceinline__ void fill_sentinel(T* __restrict__ out,
        p < end; p += stride) {
     out[p] = repro::Sentinel<T>::value;
   }
-}
-
-// Tile g's exclusive prefix, by warp 0 of its block (every lane returns
-// it); publishes the tile's aggregate first and its inclusive prefix last.
-// Each step reads kWindows windows of 32 predecessors at once, so a tile
-// far from the nearest inclusive prefix (as in the first wave, when every
-// tile starts together) waits for few round trips.
-__device__ int64_t look_back(uint64_t* __restrict__ status, int64_t g,
-                             int64_t count) {
-  constexpr int kWindows = 4;
-  const int lane = threadIdx.x & 31;
-  if (g == 0) {
-    if (lane == 0) store_release(status, kInclusive | count);
-    return 0;
-  }
-  if (lane == 0) store_release(status + g, kAggregate | count);
-  int64_t before = 0;
-  for (int64_t top = g - 1;; top -= 32 * kWindows) {
-    // every status word before a published one is published (nonzero);
-    // those before tile 0 read as an inclusive 0
-    uint64_t s[kWindows];
-#pragma unroll
-    for (int w = 0; w < kWindows; ++w) {
-      const int64_t k = top - 32 * w - lane;
-      s[w] = k >= 0 ? load_acquire(status + k) : kInclusive;
-    }
-#pragma unroll
-    for (int w = 0; w < kWindows; ++w) {
-      if (!s[w]) s[w] = wait_for(status + (top - 32 * w - lane), 1);
-    }
-#pragma unroll
-    for (int w = 0; w < kWindows; ++w) {
-      const unsigned incl = __ballot_sync(0xffffffffu, (s[w] & kInclusive) != 0);
-      const int stop = incl ? __ffs(incl) - 1 : 31;
-      int64_t v = lane <= stop ? static_cast<int64_t>(s[w] & kValue) : 0;
-#pragma unroll
-      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      before += v;
-      if (incl) {
-        if (lane == 0) store_release(status + g, kInclusive | (before + count));
-        return before;
-      }
-    }
-  }
-}
-
-__device__ void grid_barrier(uint64_t* arrive) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(reinterpret_cast<unsigned long long*>(arrive), 1ull);
-    wait_for(arrive, gridDim.x);
-  }
-  __syncthreads();
 }
 
 template <typename T>
@@ -308,7 +221,7 @@ merge_path_kernel(const T* __restrict__ buf, int64_t cap, int64_t nb_given,
       if ((keep >> k) & 1) items[rank++] = v[k];
     }
     if (warp == 0) {
-      const int64_t before = look_back(words + kStatus, g, kept);
+      const int64_t before = repro::look_back(words + kStatus, g, kept);
       if (threadIdx.x == 0) {
         offset = before;
         if (g == tiles - 1) scratch[kTotal] = before + kept;
@@ -322,8 +235,8 @@ merge_path_kernel(const T* __restrict__ buf, int64_t cap, int64_t nb_given,
     __syncthreads();  // ``items`` and ``split`` are free for the next tile
   }
 
-  grid_barrier(words + kArrive);
-  const int64_t total = static_cast<int64_t>(load_acquire(words + kTotal));
+  repro::grid_barrier(words + kArrive, gridDim.x);
+  const int64_t total = static_cast<int64_t>(repro::load_acquire(words + kTotal));
   // the hole that dropped items leave before the inputs' length
   fill_sentinel(out, min(total, cap), min(n_in, cap));
   if (blockIdx.x == 0 && threadIdx.x == 0) scratch[kNew] = total - nb;
@@ -337,28 +250,6 @@ __global__ void merge_count_kernel(const T* __restrict__ buf, int64_t cap,
   const int64_t nb =
       repro::warp_search(0, cap, [=](int64_t i) { return buf[i] < kBig; });
   if (threadIdx.x == 0) scratch[kNb] = nb;
-}
-
-// resident blocks of merge_path_kernel<T> on one card, per device
-template <typename T>
-int resident_blocks(int* out) {
-  static int cached[64] = {};
-  int dev = 0;
-  int err = cudaGetDevice(&dev);
-  if (err) return err;
-  if (dev < 64 && cached[dev]) {
-    *out = cached[dev];
-    return 0;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, merge_path_kernel<T>, kThreads, 0);
-  if (err) return err;
-  *out = sms * per_sm;
-  if (dev < 64) cached[dev] = *out;
-  return 0;
 }
 
 template <typename T>
@@ -383,8 +274,9 @@ int launch(const void* buf_, int64_t cap, int64_t nb, const void* fresh_,
     err = cudaGetLastError();
     if (err) return err;
   }
+  static int cache[64] = {};
   int resident = 0;
-  err = resident_blocks<T>(&resident);
+  err = repro::resident_blocks(merge_path_kernel<T>, kThreads, 0, cache, &resident);
   if (err) return err;
   const unsigned grid =
       static_cast<unsigned>(max(int64_t{1}, min(max_tiles, int64_t{resident})));

@@ -2,11 +2,12 @@
 TPU module ``repro/kernels/fused.py``.
 
 * :func:`fused_join_dedup` ports ``fused_join_dedup`` (TPU body
-  ``_fused_join_dedup_kernel``) as ``csrc/fused_join_dedup.cu``: a count
-  call (spans and their scan, giving the exact pair total), one read of
-  that total, and an emit call (gather and pack, sort, unique, compaction).
-  Its codes are the 16-bit-halves pairs of the distributed engine's
-  ``pack_pairs``; its output folds into an int32 :class:`FactBuffers`.
+  ``_fused_join_dedup_kernel``) as ``csrc/fused_join_dedup.cu``: one
+  memset and one cooperative launch (spans, their scan and the pairs'
+  emit, a four-pass radix sort, unique and compaction), then one read of
+  the pair total.  Its codes are the 16-bit-halves pairs of the
+  distributed engine's ``pack_pairs``; its output folds into an int32
+  :class:`FactBuffers`.
 * :func:`merge_sorted_unique` ports ``merge_sorted_unique``
   (``_merge_impl``, TPU body ``_merge_kernel``) as
   ``csrc/merge_sorted_unique.cu``: one merge-path pass over both inputs
@@ -18,20 +19,43 @@ TPU module ``repro/kernels/fused.py``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import ops, ref
 
-__all__ = ["fused_join_dedup", "merge_sorted_unique"]
+__all__ = ["fused_join_dedup", "merge_sorted_unique", "scratch_words"]
 
-#: rows per tile of the kernel's scan (one int64 tile sum each)
-_SCAN_TILE = 1024
 #: spans are int32, as on the TPU
 _MAX_RIGHT = 2**31 - 1
+#: the kernel sorts int32 positions
+_MAX_CAPACITY = 2**30
+#: the scratch layout of ``csrc/fused_join_dedup.cu`` (``layout``): rows per
+#: look-back tile, positions per sort unit, digit bins and passes
+_ROW_TILE = 2048
+_UNIT = 4096
+_BINS = 256
+_PASSES = 4
 #: merged positions per tile of the merge kernel (256 threads x 31 int32
 #: or 15 int64 items), and its scratch words before the per-tile ones
 _MERGE_TILE = {torch.int32: 256 * 31, torch.int64: 256 * 15}
 _MERGE_WORDS = 4
+
+
+def scratch_words(n: int, capacity: int) -> int:
+    """int64 words of the join kernel's scratch for ``n`` left rows and
+    ``capacity`` codes: four words, a status word per row tile and per
+    sort unit, the digit counts of each unit for each pass, and two code
+    buffers (the last three on 16-byte boundaries)."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    units = -(-capacity // _UNIT)
+    size = 8 * (4 + -(-n // _ROW_TILE) + units)
+    for part in (4 * _PASSES * _BINS * units, 4 * capacity, 4 * capacity):
+        size = a16(size) + part
+    return -(-size // 8)
 
 
 def fused_join_dedup(l_keys: torch.Tensor, l_payload: torch.Tensor,
@@ -54,51 +78,35 @@ def fused_join_dedup(l_keys: torch.Tensor, l_payload: torch.Tensor,
     n, m = l_keys.shape[0], r_keys_sorted.shape[0]
     if l_payload.shape[0] != n or r_payload.shape[0] != m:
         raise ValueError("fused_join_dedup: payloads must match their keys in length")
-    if capacity < 0:
-        raise ValueError(f"fused_join_dedup: capacity {capacity} < 0")
+    if not 0 <= capacity <= _MAX_CAPACITY:
+        raise ValueError(f"fused_join_dedup: capacity {capacity} outside [0, {_MAX_CAPACITY}]")
     if m > _MAX_RIGHT:
         raise ValueError(f"fused_join_dedup: {m} right rows overflow int32 spans")
     if l_keys.device.type == "cpu":
         return ref.fused_join_dedup(l_keys, l_payload, r_keys_sorted, r_payload, capacity)
     dev = l_keys.device
+    if capacity == 0:  # nothing to hold, and a total of 0, as on the TPU
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), 0)
     out = torch.empty(capacity, dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
-    if n == 0 or m == 0 or capacity == 0:
-        out.fill_(ref.sentinel(torch.int32))
-        return out, count, 0
-
-    def i32(k):
-        return torch.empty(k, dtype=torch.int32, device=dev)
-
-    def i64(k):
-        return torch.empty(k, dtype=torch.int64, device=dev)
-
-    # scratch stays referenced until both calls are queued: a tensor freed
-    # earlier could hand its memory to the next allocation
-    lo, cnt, offs, sums, total_t = i32(n), i64(n), i64(n), i64(-(-n // _SCAN_TILE)), i64(1)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    # scratch stays referenced until the call returns (the entry reads the
+    # total after the launch): a tensor freed earlier could hand its memory
+    # to the next allocation while the kernel runs
+    words = scratch_words(n, capacity)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    total = ctypes.c_int64()
     ops.launch(
-        "fused_join_dedup", "repro_fjd_count", torch.int32, dev,
-        l_keys.data_ptr(), n, r_keys_sorted.data_ptr(), m, lo.data_ptr(),
-        cnt.data_ptr(), offs.data_ptr(), sums.data_ptr(), total_t.data_ptr(),
+        "fused_join_dedup", "repro_fused_join_dedup", torch.int32, dev,
+        l_keys.data_ptr(), l_payload.data_ptr(), n, r_keys_sorted.data_ptr(),
+        r_payload.data_ptr(), m, capacity, out.data_ptr(), count.data_ptr(),
+        scratch.data_ptr(), words, ctypes.addressof(total),
     )
-    total = int(total_t.item())
-    k = min(total, capacity)
     # the pairs emitted are part of the launch's size: a join of two large
     # sides that matches nothing is not the largest launch
-    ops.note_launch("fused_join_dedup", n=n, m=m, capacity=capacity, pairs=k)
-    if k == 0:
-        out.fill_(ref.sentinel(torch.int32))
-        return out, count, total
-    keys, tmp, flags, pos = i32(k), i32(k), i32(k), i64(k)
-    sums, n_unique = i64(-(-k // _SCAN_TILE)), i64(1)
-    ops.launch(
-        "fused_join_dedup", "repro_fjd_emit", torch.int32, dev,
-        l_payload.data_ptr(), r_payload.data_ptr(), lo.data_ptr(),
-        offs.data_ptr(), n, k, keys.data_ptr(), tmp.data_ptr(),
-        flags.data_ptr(), pos.data_ptr(), sums.data_ptr(),
-        n_unique.data_ptr(), out.data_ptr(), capacity, count.data_ptr(),
-    )
-    return out, count, total
+    ops.note_launch("fused_join_dedup", n=n, m=m, capacity=capacity,
+                    pairs=min(total.value, capacity))
+    return out, count, total.value
 
 
 def merge_sorted_unique(buf: torch.Tensor, fresh: torch.Tensor,

@@ -23,6 +23,7 @@ __all__ = [
     "launch",
     "largest_launches",
     "launch_counts",
+    "launch_shapes",
     "note_launch",
     "reset_launch_counts",
 ]
@@ -35,6 +36,8 @@ KERNELS = (
 _KEY_TYPES = {torch.int32: "i32", torch.int64: "i64"}
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _largest: dict[str, dict[str, int]] = {k: {} for k in KERNELS}
+#: launches per distinct operand lengths, per kernel
+_shapes: dict[str, dict[tuple, int]] = {k: {} for k in KERNELS}
 #: the bound C function of each (entry, key type), with its library
 _entries: dict[tuple[str, torch.dtype], tuple] = {}
 
@@ -43,6 +46,8 @@ def note_launch(kernel: str, **shape: int) -> None:
     """Count one launch of ``kernel``; ``shape`` names its operand
     lengths (the largest launch's are kept, by their sum)."""
     _launches[kernel] += 1
+    key = tuple(shape.items())
+    _shapes[kernel][key] = _shapes[kernel].get(key, 0) + 1
     if sum(shape.values()) > sum(_largest[kernel].values()):
         _largest[kernel] = dict(shape)
 
@@ -58,10 +63,17 @@ def largest_launches() -> dict[str, dict[str, int]]:
     return {k: dict(v) for k, v in _largest.items()}
 
 
+def launch_shapes(kernel: str) -> list[tuple[dict[str, int], int]]:
+    """Each distinct set of operand lengths ``kernel`` launched with since
+    the last reset, and how many times, in the order first seen."""
+    return [(dict(key), n) for key, n in _shapes[kernel].items()]
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         _launches[k] = 0
         _largest[k] = {}
+        _shapes[k] = {}
 
 
 def check_keys(op: str, *tensors: torch.Tensor) -> None:

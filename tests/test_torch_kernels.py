@@ -13,6 +13,8 @@ wrapper handed a tensor it cannot serve without a CUDA build raises
 instead of computing.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from repro_torch.kernels import (
     rle_expand,
     sorted_member,
 )
+from repro_torch.kernels.fused import scratch_words
 from repro_torch.kernels.join_bounds import (
     PATHS,
     THREAD_KEYS,
@@ -434,6 +437,76 @@ def test_fused_join_dedup_edges_vs_pallas(case):
         assert_array_equal(out[: want.size], want)
     if case in ("empty-left", "empty-right", "zero-capacity"):
         assert (cnt, tot) == (0, 0) and (out == BIG32).all()
+
+
+@pytest.mark.parametrize("capacity", [1, 30, 64, 200])
+def test_fused_join_dedup_wide_payloads_cut_vs_pallas(capacity):
+    """Codes that wrap to negative int32 (left payloads past 15 bits),
+    enumerated left-major and cut at ``capacity`` before the dedup: the
+    card's radix sort must keep them below the positive ones."""
+    rng = np.random.default_rng(capacity)
+    l = rng.integers(0, 6, size=40).astype(np.int32)
+    r = np.sort(rng.integers(0, 6, size=12).astype(np.int32))
+    args = (l, rng.integers(0, 2**16, 40).astype(np.int32), r,
+            rng.integers(0, 2**20, 12).astype(np.int32))
+    out, cnt, tot = _fjd_port(args, capacity)
+    j_out, j_cnt, j_tot = j_fused_join_dedup(*args, capacity=capacity, interpret=True)
+    assert (cnt, tot) == (int(j_cnt[0]), int(j_tot[0]))
+    assert_array_equal(out, np.asarray(j_out))
+    if tot <= capacity:  # every pair kept: both signs present
+        assert (out[:cnt] < 0).any() and (out[:cnt] >= 0).any()
+    else:
+        assert cnt <= capacity < tot
+
+
+def test_launch_shapes_count_each_distinct_launch():
+    """The launch meter keeps every distinct set of operand lengths with
+    its count, in the order first seen, as the closure's launches are
+    read from it; a reset clears them."""
+    ops.reset_launch_counts()
+    for shape in ({"n": 3, "m": 2}, {"n": 5, "m": 2}, {"n": 3, "m": 2}):
+        ops.note_launch("fused_join_dedup", **shape)
+    assert ops.launch_shapes("fused_join_dedup") == [({"n": 3, "m": 2}, 2), ({"n": 5, "m": 2}, 1)]
+    assert ops.launch_counts()["fused_join_dedup"] == 3
+    assert ops.largest_launches()["fused_join_dedup"] == {"n": 5, "m": 2}
+    ops.reset_launch_counts()
+    assert ops.launch_shapes("fused_join_dedup") == []
+
+
+def _c_layout_bytes(n: int, capacity: int) -> int:
+    """``layout(n, capacity).bytes`` of ``csrc/fused_join_dedup.cu``,
+    evaluated from the source itself: its ``constexpr`` integers and the
+    body of ``layout``, read as Python (``/`` on integers is ``//``)."""
+    import re
+
+    src = (Path(ops.__file__).parent / "csrc" / "fused_join_dedup.cu").read_text()
+
+    def py(expr):
+        return re.sub(r"int64_t\{(\w+)\}", r"\1", expr).replace("/", "//")
+
+    consts = {}
+    for decl in re.findall(r"constexpr (?:int|int64_t) ([^;]+);", src):
+        for name, expr in re.findall(r"(\w+) = ([^,]+)", decl):
+            consts[name] = py(expr.strip())
+    env = {"align16": lambda x: (x + 15) & ~15, "n": n, "cap": capacity}
+    for name in ("kHeaderWords", "kThreads", "kRowItems", "kRowTile", "kUnitShift", "kUnit",
+                 "kBits", "kBins", "kPasses"):
+        env[name] = eval(consts[name], {}, env)
+    body = re.search(r"Layout layout\(int64_t n, int64_t cap\) \{(.*?)return s;", src, re.S)
+    for field, expr in re.findall(r"s\.(\w+) = ([^;]+);", body.group(1)):
+        env["s_" + field] = eval(py(expr).replace("s.", "s_"), {}, env)
+    return env["s_bytes"]
+
+
+@pytest.mark.parametrize("n,capacity", [(1, 1), (0, 4096), (89_912, 131_072),
+                                        (119_755, 4096), (3000, 1 << 20), (7, 4097)])
+def test_fused_join_dedup_scratch_is_sized_from_n_and_capacity(n, capacity):
+    """The kernel's scratch, as the wrapper allocates it from ``n`` and
+    ``capacity`` alone, holds the kernel's own layout (its ``layout``
+    evaluated from the CUDA source) and is no larger by a word."""
+    assert 0 <= scratch_words(n, capacity) * 8 - _c_layout_bytes(n, capacity) < 8
+    # a row tile more adds its status word, and at most a word of padding
+    assert scratch_words(n + 2048, capacity) - scratch_words(n, capacity) in (0, 1, 2)
 
 
 def test_fused_join_dedup_rejects_int64():

@@ -120,7 +120,20 @@ def test_join_cases_have_the_metered_lengths(smoke, m):
     l_keys, l_pay, r_keys, r_pay, cap = args
     assert (l_keys.shape[0], r_keys.shape[0], cap) == (900, m, 1024)
     assert torch.equal(r_keys, torch.unique(r_keys))  # each right key once
-    assert smoke._bytes("fused_join_dedup", args, 4) == (2 * 900 + 2 * m + 1024) * 4
+    # every left key and payload (all 900 pairs are kept), the right keys
+    # on either side of each span and the payloads of the matched right
+    # rows, in the 32-byte sectors that hold them; 1,024 codes and the count
+    lo = np.searchsorted(r_keys.numpy(), l_keys.numpy(), "left")
+    hi = np.searchsorted(r_keys.numpy(), l_keys.numpy(), "right")
+    assert (hi - lo == 1).all()
+
+    def sectors(x, at):
+        at = at[(at >= 0) & (at < x.shape[0])]
+        return min(4 * x.shape[0], 32 * np.unique((x.data_ptr() % 32 + 4 * at) // 32).shape[0])
+
+    want = (900 * 4 + sectors(r_keys, np.concatenate([lo - 1, lo, hi - 1, hi]))
+            + 900 * 4 + sectors(r_pay, lo) + 1024 * 4 + 4)
+    assert smoke._bytes("fused_join_dedup", args, 4) == want
     for label, case, _ in cases:
         out, count, total = fused_join_dedup(*case)
         assert out.shape == (case[4],) and int(count[0]) <= min(total, case[4]), label
@@ -148,6 +161,60 @@ def test_join_cases_have_the_metered_pairs(smoke, pairs):
     with pytest.raises(AssertionError, match="pairs"):
         smoke._cases("fused_join_dedup", dict(shape, pairs=pairs + 1, capacity=pairs),
                      torch.int32, torch.device("cpu"), np.random.default_rng(6))
+
+
+@pytest.mark.parametrize("n_students,n_courses", [(500, 700), (3000, 3000)])
+def test_closure_nopairs_case_matches_nothing(smoke, n_students, n_courses):
+    """The closure's join that matches nothing (``knows`` with itself:
+    professors on the left, students on the right), rebuilt for timing
+    from the flat oracle of a small KB as for the full one: the recorded
+    lengths and capacity, sorted right keys, every left key above them, no
+    pair, an all-sentinel output; its bound reads one sector of the right
+    keys and no payload."""
+    from repro_torch.kernels import fused_join_dedup
+
+    kb = {"n_dept": 20, "n_students": n_students, "n_courses": n_courses}
+    program, facts = smoke._kb_facts(tuple(sorted(kb.items())))
+    heads = {rule.head.predicate: args
+             for rule, args in smoke.closure_joins(program, facts, torch.device("cpu"))}
+    assert set(heads) == {"memberOfOrg", "taughtBy", "connected"}
+    n, m = heads["connected"][0].shape[0], heads["connected"][2].shape[0]
+    assert n == m == facts["knows"].shape[0]
+    shape = {"kb": kb, "head": "connected", "n": n, "m": m, "capacity": 4096, "pairs": 0}
+    args = smoke._timed_args("fused_join_dedup", "closure-connected-4096", shape, torch.int32,
+                             torch.device("cpu"), np.random.default_rng(9))
+    l_keys, l_pay, r_keys, r_pay, cap = args
+    assert (l_keys.shape[0], r_keys.shape[0], cap) == (n, m, 4096)
+    assert torch.equal(r_keys, torch.sort(r_keys).values)
+    assert int(l_keys.min()) > int(r_keys.max())
+    out, count, total = fused_join_dedup(*args)
+    assert (total, int(count[0])) == (0, 0)
+    assert bool((out == ref.sentinel(torch.int32)).all())
+    assert smoke._bytes("fused_join_dedup", args, 4) == n * 4 + 32 + 4096 * 4 + 4
+    with pytest.raises(AssertionError, match="oracle"):
+        smoke._closure_case(dict(shape, n=n + 1), torch.device("cpu"))
+
+
+def test_join_bound_counts_only_the_pairs_kept(smoke):
+    """``fused_join_dedup``'s bytes bound reads every left key, of the
+    right keys only what decides the spans, and the payloads only of the
+    rows whose pairs are kept: none when every left key lies above the
+    right side or is the sentinel, the first ``capacity`` rows when each
+    left row matches once and the cut falls at ``capacity``."""
+    big = ref.sentinel(torch.int32)
+    r = torch.arange(0, 4000, 4, dtype=torch.int32)  # 1,000 keys, 125 sectors
+    l_keys, l_pay, r_pay = r.clone(), torch.arange(1000, dtype=torch.int32), r.clone()
+    assert all(x.data_ptr() % 32 == 0 for x in (r, l_keys, l_pay, r_pay))
+    above = 5000 + l_keys[:300]
+    assert smoke._bytes("fused_join_dedup", (above, l_pay[:300], r, r_pay, 64), 4) == (
+        300 * 4 + 32 + 64 * 4 + 4)
+    padded = torch.cat([r, torch.full((8,), big, dtype=torch.int32)])
+    sentinel = torch.full((300,), big, dtype=torch.int32)
+    assert smoke._bytes("fused_join_dedup", (sentinel, l_pay[:300], padded, padded, 64), 4) == (
+        300 * 4 + 64 * 4 + 4)
+    # 128 of 1,000 single matches kept: 16 sectors of each payload
+    assert smoke._bytes("fused_join_dedup", (l_keys, l_pay, r, r_pay, 128), 4) == (
+        1000 * 4 + 1000 * 4 + 128 * 4 + 128 * 4 + 128 * 4 + 4)
 
 
 #: every case ``chip_smoke.py`` holds the four redesigned kernels to on

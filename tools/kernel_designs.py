@@ -10,8 +10,8 @@ that the kernel line of ``FILE`` (a saved standard output of
 with this checkout's ``chip_smoke.py`` builders and calls the tree's
 wrapper as the main path does.  One JSON line per case: the event-timed
 median of five :func:`chip_smoke.cuda_ms` runs, the device-only time from
-``torch.profiler``, and a digest of the outputs; then the card's name and
-power limit.
+``torch.profiler``, and a digest of the outputs (the join's host total
+included); then the card's name and power limit.
 
 Two designs are compared in one call on one card by running this for each
 tree in turns (earlier, this, this, earlier): equal digests say that their
@@ -30,7 +30,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("sorted_member", "join_bounds", "merge_sorted_unique")
+KERNELS = ("sorted_member", "join_bounds", "merge_sorted_unique", "fused_join_dedup")
 
 
 def timed_cases(smoke_log: Path):
@@ -44,9 +44,11 @@ def timed_cases(smoke_log: Path):
 
 
 def digest(outputs) -> str:
+    """A digest of a call's outputs: tensors by their bytes, host values
+    (the join's pair total) by their text."""
     h = hashlib.sha256()
     for x in outputs:
-        h.update(x.cpu().numpy().tobytes())
+        h.update(x.cpu().numpy().tobytes() if hasattr(x, "cpu") else repr(x).encode())
     return h.hexdigest()[:16]
 
 
