@@ -10,15 +10,32 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        source, all in parallel);
 2. small             — ``CMatEngine(fused=True)`` on the card against the
                        same engine on the CPU, on five small workloads;
-3. full              — ``lubm_like(n_dept=500, n_students=1_000_000,
+3. small-query       — ``tests/test_query.py``'s query lists on its KBs and
+                       ``benchmarks/bench_query.py``'s queries on its
+                       non-smoke KBs, answered by ``QueryEngine`` over a
+                       card store and over a CPU store, cold and cached:
+                       answers, ``explain()`` text, every non-timing
+                       ``ExecStats`` field and ``BatchStats`` equal; the
+                       two-constant lookups that reach ``in_set``;
+4. full              — ``lubm_like(n_dept=500, n_students=1_000_000,
                        n_courses=10_000)`` loaded and materialised on the
                        card with ``fused=True``, its fact set held against
                        the flat oracle on the CPU;
-4. small-distributed — ``DistributedEngine`` on the card against the same
+5. query             — that store frozen and queried on the card:
+                       ``bench_query.py``'s four lubm queries, a query of
+                       two constant-bound atoms, a true and a false
+                       two-constant ASK (``in_set``), and a 32-query
+                       ``answer_batch`` (``BATCH_TEMPLATE``), each answer
+                       equal to ``answer_flat`` over the CPU oracle; card
+                       walls (median of 5 after a warm-up), the flat CPU
+                       walls, ``ExecStats`` fractions, launches, host syncs,
+                       the snapshots' build time and bytes; the store's
+                       node count and id counter unchanged by the stream;
+6. small-distributed — ``DistributedEngine`` on the card against the same
                        engine on the CPU on three small workloads and one
                        that must regrow its join padding: fact sets, stats
                        and state buffers row for row;
-5. full-distributed  — ``lubm_like(500, 30_000, 1_000)`` (the largest KB the
+7. full-distributed  — ``lubm_like(500, 30_000, 1_000)`` (the largest KB the
                        engine's 15-bit ids allow at this shape) materialised
                        on the card, its stats held against the JAX
                        reference's and its fact set against the flat oracle;
@@ -26,14 +43,14 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``takesCourse`` and ``advisor`` and one adding them
                        back, each held against the flat oracle of the edited
                        explicit set;
-6. closure           — every two-atom rule whose head pairs a left-only and
+8. closure           — every two-atom rule whose head pairs a left-only and
                        a right-only variable applied once more to the full
                        store through ``fused_join_dedup`` (regrown to its
                        pair total), merged into an int32 ``FactBuffers``
                        seeded with the head relation: nothing may be new;
                        each rule's inputs equal to the flat oracle's, every
                        launch recorded and matched by the launch meter;
-7. kernels           — each kernel against its plain PyTorch version on the
+9. kernels           — each kernel against its plain PyTorch version on the
                        card (int32 and int64; ``fused_join_dedup`` int32
                        only): seeded inputs at the operand lengths of its
                        largest launch on the main path (read from the launch
@@ -42,9 +59,14 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``rle_expand`` in both key types, ``rle_expand`` also
                        with one run holding 90 % of the output,
                        ``sorted_member`` and ``join_bounds`` also at the
-                       distributed ``apply``'s largest launch in int32,
-                       ``join_bounds`` also at the CMat run's own two
-                       largest launches, ``CMAT_DISJOINT`` and
+                       distributed ``apply``'s largest launch in int32, these
+                       two and ``rle_expand`` at the query phase's largest
+                       launch in int64, with the
+                       query path's own shapes ``query-one-constant`` (one
+                       constant against a long candidate slice) and
+                       ``query-one-key`` (one key against a long sorted
+                       column), ``join_bounds`` also at the CMat run's own
+                       two largest launches, ``CMAT_DISJOINT`` and
                        ``CMAT_XJOIN``, the merge at the closure's largest
                        launch in int32, ``fused_join_dedup`` also at each
                        of the closure's own five launches,
@@ -59,16 +81,19 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        sort), the kernel's host time per call, the plain
                        version's time and the bytes bound; the
                        ``join_bounds`` path sweep;
-8. syncs             — the phase-3 materialisation once more with CUDA's
+10. syncs            — the phase-4 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
-9. profile           — only with ``--profile``: one more load and
-                       materialise of phase 3, and one more distributed
-                       materialise and 1 % delete ``apply`` of phase 5, under
-                       ``torch.profiler``, with device-busy time, launch
-                       counts and the top device and host operators.
+11. profile          — only with ``--profile``: one more load and
+                       materialise of phase 4, one pass of phase 5's query
+                       stream over it (snapshots and plans built before the
+                       trace), and one more distributed materialise and 1 %
+                       delete ``apply`` of phase 7, under ``torch.profiler``,
+                       with device-busy time, launch counts and the top
+                       device and host operators.
 
-Launch counts are zeroed just before each main-path run (phases 3, 5 and
-6) and read just after; every kernel of a path must have launched there.
+Launch counts are zeroed just before each main-path run (phases 4, 5, 7
+and 8) and read just after; every kernel of a path must have launched
+there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line the device JSON object.  Without a card, or
@@ -203,7 +228,7 @@ def device_ms(fn, reps: int = 20, tries: int = 3) -> tuple[float | None, dict[st
 
 
 # --------------------------------------------------------------------- #
-# phase 2: kernels against their plain versions
+# phase 9: kernels against their plain versions
 # --------------------------------------------------------------------- #
 def _distinct(rng, n, hi):
     """Exactly ``n`` distinct integers in ``[0, hi)``, in random order."""
@@ -447,12 +472,48 @@ def _main_path_case(label, shape, dtype, dev, rng):
     return t(keys), t(np.sort(np.repeat(keys, counts)))
 
 
+#: rows per key of a snapshot column the query path searches with one
+#: key (``lubm_like``'s 10,000 courses over 3,000,000 ``takesCourse`` rows)
+QUERY_KEY_RUN = 300
+#: a long candidate slice for one residual constant: a constant that a
+#: million rows hold
+QUERY_LONG_SLICE = 1 << 20
+
+
+def _query_case(label, shape, dtype, dev, rng):
+    """The query path's one-sided launches at full length.
+    ``query-one-key``: ``join_bounds`` of one key (``n = 1``) that the
+    sorted column holds, against ``m`` keys in runs of about
+    ``QUERY_KEY_RUN``, as ``SortedRows.count_eq`` / ``eq_slice`` search a
+    snapshot column.  ``query-one-constant``: ``sorted_member`` of ``n``
+    candidates, about half of them the constant, against that one
+    constant (``m = 1``), as ``in_set`` filters a slice by a residual
+    constant."""
+    import torch
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x)).to(dtype=dtype, device=dev)
+
+    if label == "query-one-key":
+        m = shape["m"]
+        n_keys = max(1, m // QUERY_KEY_RUN)
+        keys = np.sort(_distinct(rng, n_keys, 2**31 - 2))
+        counts = rng.multinomial(m - n_keys, [1 / n_keys] * n_keys) + 1
+        return t(keys[n_keys // 2: n_keys // 2 + 1]), t(np.repeat(keys, counts))
+    n = shape["n"]
+    c = int(rng.integers(0, 2**31 - 2))
+    a = np.where(rng.random(n) < 0.5, c, rng.integers(0, 2**31 - 2, size=n))
+    return t(a), t([c])
+
+
 def _timed_args(name, label, shape, dtype, dev, rng):
     """The inputs of one timed case: a main-path launch of
     :func:`_main_path_case`, or the ``full`` case of :func:`_cases` at
     ``shape``."""
     if label in ("cmat-disjoint", "cmat-xjoin"):
         return _main_path_case(label, shape, dtype, dev, rng)
+    if label in ("query-one-key", "query-one-constant"):
+        return _query_case(label, shape, dtype, dev, rng)
     if label.startswith("closure-"):
         return _closure_case(shape, dev)
     (args,) = [a for lab, a, _ in _cases(name, shape, dtype, dev, rng) if lab == "full"]
@@ -962,7 +1023,7 @@ def sweep_join_bounds(dev) -> list[dict]:
 
 
 # --------------------------------------------------------------------- #
-# phases 2, 3, 5, 6: the engine
+# phases 2 and 4: the engine
 # --------------------------------------------------------------------- #
 def _facts_equal(got: dict, want: dict) -> bool:
     import torch
@@ -1047,7 +1108,342 @@ def run_full(program, dataset) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phases 4-6: the distributed engine and the closure
+# phases 3 and 5: queries
+# --------------------------------------------------------------------- #
+#: ``tests/test_query.py``'s query lists
+LUBM_QUERIES = [
+    '?s, ?c <- memberOf(?s, "dept3"), takesCourse(?s, ?c)',
+    "?s, ?p <- advisor(?s, ?p), GraduateStudent(?s)",
+    "?x, ?u <- memberOf(?x, ?dv), subOrganizationOf(?dv, ?u)",
+    "?s, ?p, ?c <- advisor(?s, ?p), teacherOf(?p, ?c), takesCourse(?s, ?c)",
+    '?s <- takesCourse(?s, "course2"), GraduateStudent(?s)',
+    "?x <- knows(?x, ?x)",
+    '<- Professor("prof1")',
+    "?x, ?y <- GraduateStudent(?x), Course(?y)",  # cartesian
+    "?p <- worksWith(?s, ?p), Faculty(?p)",
+    '?q <- noSuchPred(?q)',
+]
+PAPER_QUERIES = [
+    "?x, ?y <- S(?x, ?y)",
+    '?x <- P(?x, "e2")',
+    "?x, ?z <- P(?x, ?y), T(?y, ?z)",
+    '<- S("a2", "d")',
+    "?x <- R(?x), P(?x, ?y)",
+]
+CHAIN_QUERIES = [
+    '?y <- path("v000002", ?y)',
+    '?x <- path(?x, "v000030")',
+    "?x, ?z <- edge(?x, ?y), path(?y, ?z)",
+    "?x <- path(?x, ?x)",
+]
+STAR_QUERIES = [
+    '?y <- S("s000004", ?y)',
+    "?x, ?z <- S(?x, ?y), T(?y, ?z)",
+    "?x <- P(?x, ?y), R(?x)",
+]
+#: ``benchmarks/bench_query.py``'s lubm queries
+BENCH_LUBM_QUERIES = [
+    '?s, ?c <- memberOf(?s, "dept3"), takesCourse(?s, ?c)',
+    '?s, ?p, ?c <- advisor(?s, ?p), teacherOf(?p, ?c), takesCourse(?s, ?c)',
+    '?s <- takesCourse(?s, "course7"), GraduateStudent(?s)',
+    '?x, ?u <- memberOf(?x, ?dv), subOrganizationOf(?dv, ?u)',
+]
+#: ``(name, generator, kwargs, queries)``: ``tests/test_query.py``'s
+#: ``TestDifferential`` KBs, and ``test_pallas_lookup_path``'s (its
+#: two-constant queries are made from the KB's first ``takesCourse`` row)
+TEST_QUERY_KBS = [
+    ("lubm", "lubm_like", {"n_dept": 6, "n_students": 100, "n_courses": 12, "seed": 1},
+     LUBM_QUERIES),
+    ("paper", "paper_example", {"n": 6, "m": 4}, PAPER_QUERIES),
+    ("chain", "chain", {"n": 40}, CHAIN_QUERIES),
+    ("star", "star", {"n_spokes": 60, "n_hubs": 3}, STAR_QUERIES),
+    ("lookup", "lubm_like", {"n_dept": 4, "n_students": 60, "n_courses": 8, "seed": 2}, []),
+]
+#: ``benchmarks/bench_query.py``'s non-smoke KBs and queries (its engines
+#: run with ``dedup_index=True``)
+BENCH_QUERY_KBS = [
+    ("bench-lubm", "lubm_like", {"n_dept": 12, "n_students": 600, "n_courses": 40, "seed": 0},
+     BENCH_LUBM_QUERIES),
+    ("bench-chain", "chain", {"n": 150},
+     ['?y <- path("v000003", ?y)', '?x, ?z <- edge(?x, ?y), path(?y, ?z)']),
+    ("bench-paper", "paper_example", {"n": 32, "m": 12},
+     ["?x, ?y <- S(?x, ?y)", '?x, ?z <- P(?x, ?y), T(?y, ?z)']),
+]
+#: a shared-plan micro-batch on the small lubm KBs: 32 queries of one
+#: signature (``dept<k>`` past the KB's departments are unknown terms),
+#: an ASK group and singles
+SMALL_BATCH = ([f'?s, ?c <- memberOf(?s, "dept{k}"), takesCourse(?s, ?c)' for k in range(32)]
+               + [f'<- memberOf("student{k}", "dept1")' for k in range(6)]
+               + ["?s, ?p <- advisor(?s, ?p)",
+                  '?c <- takesCourse("student1", ?c), teacherOf("prof1", ?c)'])
+#: the full-size KB's query stream: ``bench_query.py``'s lubm queries and
+#: one of two constant-bound atoms (the two-constant ASKs are added from
+#: the oracle's rows)
+FULL_QUERIES = BENCH_LUBM_QUERIES + [
+    '?p <- advisor("student3", ?p), teacherOf(?p, "course2")',
+]
+#: the full-size 32-query batch: one signature whose generalised query
+#: (the constant slot as a variable) joins ``teacherOf``'s 10,000 rows to
+#: ``takesCourse``; ``SMALL_BATCH``'s template generalises to a cross-join
+#: whose left side is all of ``memberOf`` (1,000,000 rows), which the
+#: xjoin expands row by row on the host
+BATCH_TEMPLATE = '?c, ?p <- takesCourse("student{k}", ?c), teacherOf(?p, ?c)'
+FULL_BATCH = [BATCH_TEMPLATE.format(k=k) for k in range(32)]
+#: timed repetitions of each full-size query, after one warm-up
+QUERY_REPEATS = 5
+
+
+def _exec_fields(stats) -> dict:
+    """Every non-timing field of an ``ExecStats``."""
+    return {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
+            if f.name != "time_s"}
+
+
+def _same_result(label, got, want) -> None:
+    """A card result against the CPU one: answers, plan text, stats."""
+    import torch
+
+    if got.answers.device.type != "cuda":
+        raise AssertionError(f"{label}: answers on {got.answers.device}, not the card")
+    if not torch.equal(got.answers.cpu(), want.answers):
+        raise AssertionError(f"{label}: answers differ (card vs CPU)")
+    if got.plan.explain() != want.plan.explain():
+        raise AssertionError(f"{label}: plans differ (card vs CPU)")
+    if _exec_fields(got.stats) != _exec_fields(want.stats):
+        raise AssertionError(f"{label}: ExecStats differ {_exec_fields(got.stats)} vs "
+                             f"{_exec_fields(want.stats)}")
+    if got.from_cache != want.from_cache:
+        raise AssertionError(f"{label}: one result from the cache, the other not")
+
+
+def _lookup_queries(flat, d) -> list[str]:
+    """``test_pallas_lookup_path``'s queries: a true and a false ASK with
+    two constants in one atom (from the first ``takesCourse`` row and a
+    course its student does not take), and two constant-bound atoms."""
+    import torch
+
+    tc = flat["takesCourse"].cpu()
+    s = int(tc[0, 0])
+    taken = set(tc[tc[:, 0] == s, 1].tolist())
+    other = next(c for c in torch.unique(tc[:, 1]).tolist() if c not in taken)
+    return [f'<- takesCourse("{d.term_of(s)}", "{d.term_of(int(tc[0, 1]))}")',
+            f'<- takesCourse("{d.term_of(s)}", "{d.term_of(other)}")',
+            '?p <- advisor("student3", ?p), teacherOf(?p, "course2")']
+
+
+def check_small_queries() -> None:
+    """Phase 3: the same queries through ``QueryEngine`` over a card store
+    and a CPU store (cold, then from the result cache), and
+    ``SMALL_BATCH`` on the lubm KBs: everything equal."""
+    from repro_torch.core import CMatEngine
+    from repro_torch.core import generators
+    from repro_torch.query import QueryEngine
+
+    for name, gen, kw, queries in TEST_QUERY_KBS + BENCH_QUERY_KBS:
+        program, dataset, d = getattr(generators, gen)(**kw)
+        engines = {}
+        for device in ("cuda", "cpu"):
+            eng = CMatEngine(program, dedup_index=name.startswith("bench-"), device=device)
+            eng.load(dataset)
+            eng.materialise()
+            engines[device] = QueryEngine(eng, d)
+        card, cpu = engines["cuda"], engines["cpu"]
+        if name == "lookup":
+            queries = _lookup_queries(cpu.frozen.facts.to_dict(), d)
+        for _ in range(2):  # cold, then from the result cache
+            for text in queries:
+                _same_result(f"small-query {name} {text!r}", card.answer(text), cpu.answer(text))
+        n_batch = 0
+        if gen == "lubm_like":
+            for _ in range(2):
+                got, got_stats = card.answer_batch(SMALL_BATCH)
+                want, want_stats = cpu.answer_batch(SMALL_BATCH)
+                if dataclasses.asdict(got_stats) != dataclasses.asdict(want_stats):
+                    raise AssertionError(f"small-query {name}: BatchStats {got_stats} vs {want_stats}")
+                for text, g, w in zip(SMALL_BATCH, got, want):
+                    _same_result(f"small-query {name} batch {text!r}", g, w)
+            n_batch = len(SMALL_BATCH)
+        if card.cache_stats() != cpu.cache_stats():
+            raise AssertionError(f"small-query {name}: cache counters differ")
+        log(f"[small-query] {name}: {len(queries)} queries and {n_batch} batched equal "
+            f"(card vs CPU), {card.cache_stats()}")
+
+
+def _timed_answer(qe, text, reps: int) -> tuple:
+    """``reps`` card walls of ``qe.answer(text)`` (host clock, ending in
+    ``torch.cuda.synchronize()``) and the last result."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = qe.answer(text)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, res
+
+
+def _fractions(res) -> dict:
+    """``bench_query.py``'s evidence columns of one result."""
+    scan = res.stats.unfold_fractions()
+    join = res.stats.join_cell_fractions()
+    return {
+        "scan_frac": max(scan.values()) if scan else 0.0,
+        "join_frac": max(join.values()) if join else 0.0,
+        "full_unfolds": [p for p in res.stats.fully_unfolded()
+                         if res.stats.pred_rows[p] > res.n_answers],
+    }
+
+
+def run_queries(eng, oracle, d) -> dict:
+    """Phase 5: freeze the full-size card store and answer
+    ``FULL_QUERIES``, the two-constant ASKs and ``FULL_BATCH`` on it, each
+    answer equal to ``answer_flat`` over the CPU oracle; the launch meter
+    covers exactly this stream."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import get_registry
+    from repro_torch.query import QueryEngine, answer_flat
+
+    store = eng.store
+    in_set_calls = get_registry().counter("kernels.in_set.calls")
+    in_set_before = in_set_calls.value
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    qe = QueryEngine(eng, d, result_cache_size=0)
+    frozen = qe.frozen
+    frozen_nodes = (store.n_nodes(), store._next_id)
+    queries = FULL_QUERIES + _lookup_queries(oracle, d)[:2]
+    out = {"queries": [], "snapshot_build_s": {}}
+
+    # each snapshot is built once, where the stream first needs it: time
+    # that build (its unfolds and dedup) between two synchronisations
+    plain_sorted_rows = frozen.sorted_rows
+
+    def timed_sorted_rows(pred):
+        if frozen.has_snapshot(pred):
+            return plain_sorted_rows(pred)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = plain_sorted_rows(pred)
+        torch.cuda.synchronize()
+        out["snapshot_build_s"][pred] = time.perf_counter() - t0
+        return rows
+
+    frozen.sorted_rows = timed_sorted_rows
+    for text in queries:
+        walls, res = _timed_answer(qe, text, 1 + QUERY_REPEATS)  # warm-up first
+        t0 = time.perf_counter()
+        want = answer_flat(qe.parse(text), oracle)
+        flat_s = time.perf_counter() - t0
+        if not torch.equal(res.answers.cpu(), want):
+            raise AssertionError(f"query {text!r}: answers differ from answer_flat")
+        entry = {"query": text, "n_answers": res.n_answers, "card_first_s": walls[0],
+                 "card_s": statistics.median(walls[1:]), "card_walls_s": walls[1:],
+                 "flat_cpu_s": flat_s, **_fractions(res),
+                 "stats": _exec_fields(res.stats)}
+        out["queries"].append(entry)
+        log(f"[query] {text}: {res.n_answers} answers, first "
+            f"{qe.decode(res.answers[:3])}, equal to answer_flat")
+        for line in res.plan.explain().splitlines():
+            log(f"[query]   {line}")
+        log(f"[query]   {entry}")
+    if not (qe.answer(queries[-2]).ask and not qe.answer(queries[-1]).ask):
+        raise AssertionError("query: the two-constant ASKs are not true, false")
+
+    batch_qe = QueryEngine(frozen, d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, bstats = batch_qe.answer_batch(FULL_BATCH)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for text, res in zip(FULL_BATCH, results):
+        if not torch.equal(res.answers.cpu(), answer_flat(batch_qe.parse(text), oracle)):
+            raise AssertionError(f"batch {text!r}: answers differ from answer_flat")
+    batch_flat_s = time.perf_counter() - t0
+    out["batch"] = {"template": BATCH_TEMPLATE, "n": len(FULL_BATCH),
+                    "stats": dataclasses.asdict(bstats), "card_s": batch_s,
+                    "flat_cpu_s": batch_flat_s,
+                    "n_answers": [r.n_answers for r in results]}
+    log(f"[query] batch of {len(FULL_BATCH)} {BATCH_TEMPLATE!r}: {bstats}, card "
+        f"{batch_s:.3f} s, flat on the CPU {batch_flat_s:.3f} s, answers "
+        f"{out['batch']['n_answers']}, each equal to answer_flat")
+    if bstats.n_groups != 1 or bstats.n_grouped != len(FULL_BATCH):
+        raise AssertionError(f"batch: not answered as one generalised query: {bstats}")
+
+    torch.cuda.synchronize()
+    del frozen.sorted_rows
+    out["launches"] = ops.launch_counts()
+    out["largest_launch"] = ops.largest_launches()
+    out["one_key_m"] = max((s["m"] for s, _ in ops.launch_shapes("join_bounds")
+                            if s.get("n") == 1), default=0)
+    out["one_constant_n"] = max((s["n"] for s, _ in ops.launch_shapes("sorted_member")
+                                 if s.get("m") == 1), default=0)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["in_set_calls"] = in_set_calls.value - in_set_before
+    log(f"[query] launches {out['launches']}; in_set calls metered "
+        f"(kernels.in_set.calls) {out['in_set_calls']}")
+    log(f"[query] largest launch per kernel {out['largest_launch']}; widest n = 1 "
+        f"join_bounds m {out['one_key_m']}, longest m = 1 sorted_member n "
+        f"{out['one_constant_n']}")
+    missing = [k for k in ("sorted_member", "join_bounds", "rle_expand")
+               if out["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"query phase never launched: {missing}")
+    if not out["one_key_m"] or not out["one_constant_n"] or not out["in_set_calls"]:
+        raise AssertionError("query phase: no n = 1 join_bounds, m = 1 sorted_member "
+                             "launch or metered in_set call")
+    if (store.n_nodes(), store._next_id) != frozen_nodes:
+        raise AssertionError(f"query: the store grew from {frozen_nodes} to "
+                             f"{(store.n_nodes(), store._next_id)} nodes / next id")
+
+    # the stream once more, as the sync count's run: the scratch must be
+    # reclaimed again, and each planner count_eq is one host read
+    count_eq = 0
+    plain_count_eq = frozen.count_eq
+
+    def counted(pred, pos, value):
+        nonlocal count_eq
+        count_eq += 1
+        return plain_count_eq(pred, pos, value)
+
+    frozen.count_eq = counted
+    sync_qe = QueryEngine(frozen, d)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for text in queries:
+                sync_qe.answer(text)
+            sync_qe.answer_batch(FULL_BATCH)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    del frozen.count_eq
+    out["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    out["count_eq_calls"] = count_eq
+    if (store.n_nodes(), store._next_id) != frozen_nodes:
+        raise AssertionError("query: the repeated stream left scratch nodes behind")
+    log(f"[query] host synchronisations in one pass of the stream (queries and "
+        f"batch, snapshots built, plans cold): {out['syncs']}, of which count_eq "
+        f"calls {count_eq}; store {frozen_nodes} nodes / next id before and after")
+
+    out["snapshot_resident_bytes"] = frozen.snapshot_resident_bytes()
+    out["snapshots"] = {p: int(frozen.snapshot(p).shape[0]) for p in sorted(frozen._sorted)}
+    log(f"[query] snapshots {out['snapshots']} (rows), built in (s) "
+        f"{out['snapshot_build_s']}, {sum(out['snapshot_build_s'].values()):.3f} s in all; "
+        f"snapshot_resident_bytes {out['snapshot_resident_bytes']} (with the column "
+        f"orders built since); max_memory_allocated in the phase "
+        f"{out['max_memory_allocated']}")
+    del qe, batch_qe, sync_qe, frozen
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phases 6-8: the distributed engine and the closure
 # --------------------------------------------------------------------- #
 def _nonempty(facts: dict) -> dict:
     return {p: r for p, r in facts.items() if r.shape[0]}
@@ -1277,7 +1673,7 @@ def _device_us(evt) -> float:
     )
 
 
-def _profile_phases(program, dataset):
+def _profile_phases(program, dataset, dictionary):
     """``(label, prepare)`` for each traced phase: ``prepare()`` does the
     untraced set-up and returns the call to trace."""
     from repro_torch.core import CMatEngine
@@ -1305,14 +1701,32 @@ def _profile_phases(program, dataset):
                 for p in ("takesCourse", "advisor")}
         return lambda: dist.apply(deletions=dels)
 
+    def query_stream():
+        from repro_torch.query import QueryEngine
+
+        eng = CMatEngine(program, fused=True)
+        eng.load(dataset)
+        eng.materialise()
+        qe = QueryEngine(eng, dictionary, result_cache_size=0)
+
+        def run():
+            for text in FULL_QUERIES:
+                qe.answer(text)
+            qe.answer_batch(FULL_BATCH)
+
+        run()  # snapshots and plans built off the trace
+        return run
+
     return [("load", cmat_load), ("materialise", cmat_materialise),
+            ("query stream", query_stream),
             ("distributed materialise", dist_materialise),
             ("distributed apply", dist_apply)]
 
 
-def profile_run(program, dataset) -> None:
-    """Trace the CMat load and materialise, and the distributed
-    materialise and a 1 % delete ``apply``, with ``torch.profiler``: wall,
+def profile_run(program, dataset, dictionary) -> None:
+    """Trace the CMat load and materialise, a pass of the query stream,
+    and the distributed materialise and a 1 % delete ``apply``, with
+    ``torch.profiler``: wall,
     device-busy time (kernels and copies as the card ran them) and its
     share of the wall, CUDA kernel launches issued, the top device and
     host operators, and the hand-written kernels' own device time."""
@@ -1324,7 +1738,7 @@ def profile_run(program, dataset) -> None:
             "join_bounds_table_kernel", "join_bounds_probe_kernel",
             "join_bounds_warp_kernel", "join_bounds_thread_kernel", "rle_expand_kernel",
             "merge_path_kernel", "merge_count_kernel", "fjd_kernel")
-    for phase, prepare in _profile_phases(program, dataset):
+    for phase, prepare in _profile_phases(program, dataset, dictionary):
         call = prepare()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1366,7 +1780,8 @@ def nvidia_smi() -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace the CMat and distributed runs once more with torch.profiler")
+                        help="trace the CMat, query and distributed runs once more "
+                             "with torch.profiler")
     args = parser.parse_args()
     import torch
 
@@ -1388,8 +1803,9 @@ def main() -> int:
     log(f"[build] {len(build.SOURCES)} libraries in {t_build:.1f} s")
 
     check_small_workloads()
+    check_small_queries()
 
-    program, dataset, _ = lubm_like(
+    program, dataset, dictionary = lubm_like(
         n_dept=N_DEPT, n_students=N_STUDENTS, n_courses=N_COURSES
     )
     n_explicit = sum(int(v.shape[0]) for v in dataset.values())
@@ -1403,6 +1819,7 @@ def main() -> int:
     if not _facts_equal(full["engine"].materialisation(), oracle):
         raise AssertionError("full run: fact set differs from flat_seminaive")
     log("[full] fact set equals flat_seminaive")
+    query = run_queries(full["engine"], oracle, dictionary)
     del full["engine"], oracle
     torch.cuda.empty_cache()
 
@@ -1420,15 +1837,25 @@ def main() -> int:
     closure_merge = closure["largest_launch"]["merge_sorted_unique"]
     if not closure_merge.get("count"):
         raise AssertionError(f"the closure's largest merge holds no codes: {closure_merge}")
+    # the query phase's kernels also at its largest launch each, and
+    # sorted_member and join_bounds at its one-sided shapes: one key
+    # against a snapshot column as long as the widest it searched, one
+    # constant against a long candidate slice
+    one_constant = {"n": max(query["one_constant_n"], QUERY_LONG_SLICE), "m": 1}
     extra = {
         "sorted_member": [
             ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
+            ("query", query["largest_launch"]["sorted_member"], (torch.int64,)),
+            ("query-one-constant", one_constant, (torch.int64,)),
         ],
         "join_bounds": [
             ("cmat-disjoint", CMAT_DISJOINT, (torch.int64,)),
             ("cmat-xjoin", CMAT_XJOIN, (torch.int64,)),
             ("distributed-apply", dist["apply_largest"]["join_bounds"], (torch.int32,)),
+            ("query", query["largest_launch"]["join_bounds"], (torch.int64,)),
+            ("query-one-key", {"n": 1, "m": query["one_key_m"]}, (torch.int64,)),
         ],
+        "rle_expand": [("query", query["largest_launch"]["rle_expand"], (torch.int64,))],
         "merge_sorted_unique": [("closure", closure_merge, (torch.int32,))],
         # each of the closure's own launches, the regrow's cut first calls
         # and the one that matches nothing among them
@@ -1441,10 +1868,11 @@ def main() -> int:
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
     if args.profile:
-        profile_run(program, dataset)
+        profile_run(program, dataset, dictionary)
 
     paths = {
         "cmat": full["launches"],
+        "query": query["launches"],
         "distributed": dist["launches"],
         "distributed_apply": dist["apply_launches"],
         "closure": closure["launches"],

@@ -3,8 +3,12 @@ knowledge bases (Hu, Urbani, Motik, Horrocks — CIKM 2019) on an NVIDIA
 H100.
 
 Subpackages mirror the JAX package's layout: ``core`` (the paper's
-engine on tensors), ``kernels`` (hand-written CUDA kernels with their
-plain PyTorch versions), ``obs`` (spans, metrics, byte reports).
+engine on tensors, and ``FrozenFacts``, the frozen read side),
+``query`` (conjunctive queries answered over the compressed store:
+parser, planner, executor, ``QueryEngine``, micro-batches, the flat
+oracle), ``kernels`` (hand-written CUDA kernels with their plain PyTorch
+versions), ``obs`` (spans, metrics, byte reports), ``incremental`` (what
+the distributed engine's ``apply`` needs).
 :mod:`.convert` carries compressed state over from numpy arrays.
 The entry points run on the card unless the caller passes
 ``device="cpu"``.

@@ -354,6 +354,36 @@ class ColumnStore:
         return self.new_concat(parts)
 
     # ------------------------------------------------------------------ #
+    # scratch regions (query-time allocations)
+    # ------------------------------------------------------------------ #
+    def mark(self) -> int:
+        """Checkpoint the id counter; nodes created from here on form a
+        scratch region that :meth:`release` can reclaim wholesale."""
+        return self._next_id
+
+    def release(self, mark: int) -> None:
+        """Drop every node with id >= ``mark``, with its unfold-cache
+        entry, its bytes and its parent links.
+
+        Sound only under the frozen-store contract: no node below ``mark``
+        has been redefined in place since the checkpoint (query evaluation
+        splits with ``inplace=False``), and no surviving meta-fact
+        references a dropped id."""
+        for cid in range(mark, self._next_id):
+            node = self._nodes.pop(cid, None)
+            if node is None:
+                continue
+            self._account_remove(cid, node)
+            self._cache_drop(cid)
+            self._parents.pop(cid, None)
+            if isinstance(node, _Concat):
+                for child in node.children:
+                    parents = self._parents.get(child)
+                    if parents is not None:
+                        parents.discard(cid)
+        self._next_id = mark
+
+    # ------------------------------------------------------------------ #
     # stats
     # ------------------------------------------------------------------ #
     def n_nodes(self) -> int:

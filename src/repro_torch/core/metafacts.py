@@ -93,6 +93,16 @@ class FactStore:
         """Number of represented facts (with multiplicity)."""
         return sum(mf.length for lst in self._facts.values() for mf in lst)
 
+    def freeze(self):
+        """Snapshot view for query answering.
+
+        After freezing, the meta-facts and every node currently in the
+        column store must not be redefined; query evaluation allocates
+        only scratch nodes above the freeze mark and releases them."""
+        from .frozen import FrozenFacts
+
+        return FrozenFacts(self)
+
     def to_dict(self) -> dict[str, torch.Tensor]:
         """Unfold the whole store into flat per-predicate fact tensors
         (lexicographically sorted, duplicates removed)."""

@@ -156,6 +156,11 @@ def test_port_imports_neither_jax_nor_reference():
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert not bad, bad
     assert len(_port_files()) > 10
+    scanned = {path.relative_to(REPO / "src" / "repro_torch").as_posix()
+               for path in _port_files()[:-1]}
+    assert {"core/frozen.py", "core/owl2rl.py", "kernels/lookup.py", "query/ast.py",
+            "query/plan.py", "query/exec.py", "query/ref.py", "query/engine.py",
+            "query/batch.py", "query/__init__.py"} <= scanned
 
 
 @pytest.mark.parametrize(

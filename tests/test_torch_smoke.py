@@ -321,6 +321,33 @@ def test_main_path_cases_match_pallas(smoke, label, shape):
         assert int((hi - lo).sum()) == shape["m"]
 
 
+@pytest.mark.parametrize("label,shape", [
+    ("query-one-key", {"n": 1, "m": 5000}),
+    ("query-one-constant", {"n": 3001, "m": 1}),
+])
+def test_query_cases_match_pallas(smoke, label, shape):
+    """The query path's one-sided launches, at a small size: one key that
+    a sorted column holds in runs (``SortedRows`` spans), and one constant
+    against a candidate slice about half of which holds it (``in_set``)."""
+    a, b = smoke._timed_args("sorted_member" if shape["m"] == 1 else "join_bounds", label,
+                             shape, torch.int32, torch.device("cpu"), np.random.default_rng(9))
+    assert (a.shape[0], b.shape[0]) == (shape["n"], shape["m"])
+    assert torch.equal(b, torch.sort(b).values)
+    if label == "query-one-key":
+        lo, hi = join_bounds(a, b)
+        jlo, jhi = j_join_bounds(a.numpy(), b.numpy(), interpret=True)
+        assert_array_equal(lo.numpy(), np.asarray(jlo))
+        assert_array_equal(hi.numpy(), np.asarray(jhi))
+        assert 0 < int(hi[0] - lo[0]) < shape["m"]
+        assert torch.unique(b).shape[0] == shape["m"] // smoke.QUERY_KEY_RUN
+    else:
+        got = sorted_member(a, b).numpy()
+        assert_array_equal(got, np.asarray(j_sorted_member(a.numpy(), b.numpy(),
+                                                           interpret=True)))
+        assert_array_equal(got, a.numpy() == int(b[0]))
+        assert 0.4 < got.mean() < 0.6
+
+
 def test_mirrored_cases_are_every_card_case(smoke):
     for name, labels in MIRRORED.items():
         assert [lab for lab, _, _ in _int32_cases(smoke, name)] == labels
