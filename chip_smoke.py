@@ -81,19 +81,42 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        sort), the kernel's host time per call, the plain
                        version's time and the bytes bound; the
                        ``join_bounds`` path sweep;
-10. syncs            — the phase-4 materialisation once more with CUDA's
+10. serve-small      — the port's server (``repro_torch.launch.serve_datalog``,
+                       in-process) at ``--kb lubm --scale 1``, static and
+                       ``--live --live-verify``, on the card and with
+                       ``--device cpu``: every non-timing report field equal;
+11. serve            — the static server at ``--scale 10000``
+                       (``lubm_like(40_000, 1_000_000, 80_000)``) with 1,000
+                       queries on the card: its fact count and answer total
+                       equal the flat oracle's (``flat_seminaive`` and
+                       ``answer_flat``, plain versions only, on the card);
+                       q/s, p50/p90/p99, hit rate, mu-nodes, launches, and the
+                       host syncs of one more pass of the stream;
+12. live             — the live server there (``--live --update-every 50
+                       --update-size 8 --live-verify``, 250 queries, 4
+                       batches), ending ``[live-verify] OK`` at an epoch equal
+                       to the batches applied: apply p50/p99, the ``inc.*``
+                       counts, launches, ``max_memory_allocated``, and the
+                       host syncs of one more batch; then the largest
+                       ``sorted_member``, ``join_bounds`` and ``rle_expand``
+                       launch of phases 11 and 12 against the plain version
+                       and timed against the library call, event-timed
+                       (the profiler's traces lose events after these
+                       phases, so phase 9 runs before them);
+13. syncs            — the phase-4 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
-11. profile          — only with ``--profile``: one more load and
+14. profile          — only with ``--profile``: one more load and
                        materialise of phase 4, one pass of phase 5's query
                        stream over it (snapshots and plans built before the
                        trace), and one more distributed materialise and 1 %
                        delete ``apply`` of phase 7, under ``torch.profiler``,
                        with device-busy time, launch counts and the top
-                       device and host operators.
+                       device and host operators; and, within phase 12, one
+                       more live batch and the 50 queries after it.
 
-Launch counts are zeroed just before each main-path run (phases 4, 5, 7
-and 8) and read just after; every kernel of a path must have launched
-there.
+Launch counts are zeroed just before each main-path run (phases 4, 5, 7,
+8, 11 and 12) and read just after; every kernel of a path must have
+launched there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line the device JSON object.  Without a card, or
@@ -891,6 +914,12 @@ def _compare(name, label, dtype, got, want) -> int:
     return err
 
 
+def _kernels_per_call(device_ops: dict[str, float]) -> float:
+    """Kernels a call ran, from :func:`device_ms`'s counts: copies and sets
+    are not kernels."""
+    return sum(c for k, c in device_ops.items() if not k.startswith(("Memset", "Memcpy")))
+
+
 def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     """Every time of one timed case: kernel and library call in
     alternating turns (event-timed medians), their device-only times under
@@ -900,6 +929,14 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     call = main_path_call(name, kernel, args)
     ms, library_ms = alternating_ms(call, library)
     kernel_device_ms, device_ops = device_ms(call)
+    # every fused_join_dedup call launches its kernel (the launch meter
+    # counts it): a trace showing less than one a call lost events (the
+    # card's host drops some now and then), so it is taken again, up to
+    # TRACE_TRIES times in all, as in _check_paths_ran
+    for _ in range(TRACE_TRIES - 1):
+        if name != "fused_join_dedup" or round(_kernels_per_call(device_ops)) >= 1:
+            break
+        kernel_device_ms, device_ops = device_ms(call)
     entry = {
         "case": label,
         "dtype": str(dtype)[6:],
@@ -918,7 +955,7 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     # the merge as the main path calls it is one kernel (two only when it
     # must find how many codes buf holds), never with a library scan;
     # copies and sets are not kernels
-    kernels = sum(c for k, c in device_ops.items() if not k.startswith(("Memset", "Memcpy")))
+    kernels = _kernels_per_call(device_ops)
     if name == "merge_sorted_unique" and (
         kernels > 1 or any("Scan" in k or "cumsum" in k for k in device_ops)
     ):
@@ -1020,6 +1057,21 @@ def sweep_join_bounds(dev) -> list[dict]:
             points.append(point)
             del l, r, want
     return points
+
+
+def _count_syncs(call):
+    """``(result, host synchronisations)`` of ``call()`` under CUDA's
+    sync debug mode."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sum("synchroniz" in str(w.message) for w in caught)
 
 
 # --------------------------------------------------------------------- #
@@ -1413,17 +1465,14 @@ def run_queries(eng, oracle, d) -> dict:
 
     frozen.count_eq = counted
     sync_qe = QueryEngine(frozen, d)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for text in queries:
-                sync_qe.answer(text)
-            sync_qe.answer_batch(FULL_BATCH)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+
+    def stream():
+        for text in queries:
+            sync_qe.answer(text)
+        sync_qe.answer_batch(FULL_BATCH)
+
+    _, out["syncs"] = _count_syncs(stream)
     del frozen.count_eq
-    out["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     out["count_eq_calls"] = count_eq
     if (store.n_nodes(), store._next_id) != frozen_nodes:
         raise AssertionError("query: the repeated stream left scratch nodes behind")
@@ -1648,6 +1697,259 @@ def run_closure(eng) -> dict:
     return {"launches": launches, "largest_launch": ops.largest_launches(), "joins": joins}
 
 
+# --------------------------------------------------------------------- #
+# phases 10-12: the server (launch/serve_datalog.py)
+# --------------------------------------------------------------------- #
+#: the server's full-size KB, ``--kb lubm --scale 10000``:
+#: ``lubm_like(40_000, 1_000_000, 80_000)``
+SERVE_SCALE = 10_000
+SERVE_QUERIES = 1000
+#: the live phase's stream: a batch every ``LIVE_EVERY`` queries
+LIVE_QUERIES, LIVE_EVERY, LIVE_SIZE = 250, 50, 8
+#: the small phase: the server's static and live runs at ``--scale 1``
+SMALL_SERVE = [
+    ["--kb", "lubm", "--scale", "1", "--n-queries", "300"],
+    ["--kb", "lubm", "--scale", "1", "--n-queries", "300", "--live", "--update-every",
+     "100", "--update-size", "6", "--live-verify"],
+]
+#: report keys that hold times, or the lengths of the journal's time floats
+SERVE_TIMED = ("seconds", "qps", "time", "apply_s", "journal_bytes")
+
+
+def _serve(argv: list[str]):
+    """One in-process run of the port's server with a fresh metrics
+    registry: ``(ServeRun, report blocks by tag)``."""
+    import tempfile
+
+    from repro_torch.launch import serve_datalog as serve
+    from repro_torch.obs import metrics
+
+    prev = metrics.set_registry(metrics.MetricsRegistry())
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "report.jsonl"
+            served = serve.run([*argv, "--report-json", str(path)])
+            blocks = {}
+            for line in path.read_text().splitlines():
+                rec = json.loads(line)
+                blocks[rec.pop("block")] = rec
+    finally:
+        metrics.set_registry(prev)
+    if served.rc:
+        raise AssertionError(f"serve {' '.join(argv)}: exit code {served.rc}")
+    return served, blocks
+
+
+def _untimed(block: dict) -> dict:
+    return {k: v for k, v in block.items() if not any(t in k for t in SERVE_TIMED)}
+
+
+def check_small_serve() -> None:
+    """Phase 10: the server at ``--scale 1`` on the card and on the CPU,
+    static and ``--live --live-verify``: every non-timing report field
+    equal."""
+    for argv in SMALL_SERVE:
+        (_, card), (_, cpu) = (_serve([*argv, "--device", d]) for d in ("cuda", "cpu"))
+        if set(card) != set(cpu):
+            raise AssertionError(f"serve-small {argv}: blocks {set(card) ^ set(cpu)} differ")
+        for block in sorted(set(card) - {"latency", "memory", "kernels"}):
+            if _untimed(card[block]) != _untimed(cpu[block]):
+                raise AssertionError(f"serve-small {argv}: [{block}] {card[block]} != {cpu[block]}")
+        if not any(card["kernels"]["launches"].values()):
+            raise AssertionError(f"serve-small {argv}: no kernel launched on the card")
+        if "--live" in argv and not card["live-verify"]["ok"]:
+            raise AssertionError(f"serve-small {argv}: live-verify failed")
+        log(f"[serve-small] {' '.join(argv)}: card and CPU reports equal "
+            f"({len(card) - 3} blocks compared), answers {card['serve']['answers']}, "
+            f"card launches {card['kernels']['launches']}")
+
+
+def _percentiles(walls_s) -> dict:
+    ms = np.asarray(walls_s) * 1e3
+    return {f"p{q}_ms": float(np.percentile(ms, q)) for q in (50, 90, 99)}
+
+
+def _check_launched(phase: str, launches: dict) -> None:
+    missing = [k for k in ("sorted_member", "join_bounds", "rle_expand") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: never launched {missing}")
+
+
+def run_serve(oracle) -> dict:
+    """Phase 11: the static server at ``--scale 10000`` on the card; its
+    fact count and answer total held against the flat oracle."""
+    import collections
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.query import QueryEngine, answer_flat
+
+    argv = ["--kb", "lubm", "--scale", str(SERVE_SCALE), "--n-queries", str(SERVE_QUERIES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, blocks = _serve(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, largest = ops.launch_counts(), ops.largest_launches()
+    n_oracle = sum(int(r.shape[0]) for r in oracle.values())
+    if blocks["materialise"]["n_facts"] != n_oracle:
+        raise AssertionError(f"serve: {blocks['materialise']['n_facts']} facts, the flat "
+                             f"oracle {n_oracle}")
+    want = 0
+    t1 = time.perf_counter()
+    for text, count in collections.Counter(served.stream).items():
+        want += count * int(answer_flat(served.qe.parse(text), oracle).shape[0])
+    flat_s = time.perf_counter() - t1
+    if blocks["serve"]["answers"] != want:
+        raise AssertionError(f"serve: {blocks['serve']['answers']} answers, answer_flat {want}")
+    _check_launched("serve", launches)
+    out = {
+        "wall_s": wall,
+        "materialise_s": blocks["materialise"]["seconds"],
+        "n_facts": n_oracle,
+        "n_meta_facts": blocks["materialise"]["n_meta_facts"],
+        "serve_s": blocks["serve"]["seconds"],
+        "qps": blocks["serve"]["qps"],
+        **_percentiles(served.latencies_s),
+        "hit_rate": blocks["cache"]["hit_rate"],
+        "mu_nodes": blocks["store"]["mu_nodes"],
+        "answers": want,
+        "answer_flat_s": flat_s,
+        "kernels_meter": {k: v for k, v in blocks["kernels"].items() if k != "launches"},
+        "launches": launches,
+        "largest_launch": largest,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    # one more pass of the stream over the same snapshots, plans and
+    # results cold, as the sync count's run
+    qe = QueryEngine(served.qe.frozen, served.dictionary)
+    _, out["syncs"] = _count_syncs(lambda: [qe.answer(t) for t in served.stream])
+    log(f"[serve] {' '.join(argv)}: {out}")
+    log(f"[serve] fact count and answer total ({want}) equal the flat oracle's; "
+        f"host syncs of one pass of the stream {out['syncs']}")
+    del served, qe
+    return out
+
+
+def run_live(oracle_facts: int, profile: bool) -> dict:
+    """Phase 12: the live server at ``--scale 10000`` on the card, ending
+    ``[live-verify] OK``; then one more batch with the syncs counted, and
+    with ``profile`` one more batch and the queries up to the next one
+    under ``torch.profiler``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    argv = ["--kb", "lubm", "--scale", str(SERVE_SCALE), "--n-queries", str(LIVE_QUERIES),
+            "--live", "--update-every", str(LIVE_EVERY), "--update-size", str(LIVE_SIZE),
+            "--live-verify"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, blocks = _serve(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, largest = ops.launch_counts(), ops.largest_launches()
+    live = blocks["live"]
+    if not blocks["live-verify"]["ok"]:
+        raise AssertionError("live: live-verify failed")
+    if live["inc.epoch"] != served.applied or served.applied < 4:
+        raise AssertionError(f"live: epoch {live['inc.epoch']} after {served.applied} batches")
+    if blocks["materialise"]["n_facts"] != oracle_facts:
+        raise AssertionError(f"live: {blocks['materialise']['n_facts']} facts loaded, the "
+                             f"flat oracle {oracle_facts}")
+    _check_launched("live", launches)
+    out = {
+        "wall_s": wall,
+        "load_s": blocks["materialise"]["seconds"],
+        "batches": served.applied,
+        "epoch": live["inc.epoch"],
+        **{f"apply_{k}": v for k, v in _percentiles(served.apply_s).items()},
+        "apply_s": served.apply_s,
+        "inc": {k: v for k, v in live.items() if k.startswith("inc.n_") or k in (
+            "inc.counting_strata", "inc.dred_strata", "inc.batches", "stale_evictions")},
+        "queries": blocks["serve"]["queries"],
+        "qps": blocks["serve"]["qps"],
+        **_percentiles(served.latencies_s),
+        "verified_facts": blocks["live-verify"]["facts"],
+        "mu_gc": {k: v for k, v in blocks["mu-gc"].items() if "time" not in k},
+        "launches": launches,
+        "largest_launch": largest,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    inc = served.inc
+    dels, adds = served.batches[served.applied]
+    _, out["syncs_one_batch"] = _count_syncs(
+        lambda: inc.apply(additions=adds, deletions=dels))
+    log(f"[live] {' '.join(argv)}: {out}")
+    log(f"[live] [live-verify] OK at epoch {out['epoch']} after {served.applied} batches; "
+        f"host syncs of one more batch {out['syncs_one_batch']}")
+    if profile:
+        dels, adds = served.batches[served.applied + 1]
+        qe, texts = served.qe, served.stream[:LIVE_EVERY]
+
+        def batch_and_queries():
+            inc.apply(additions=adds, deletions=dels)
+            inc.maybe_compact()
+            qe.bump_epoch(inc)
+            for text in texts:
+                qe.answer(text)
+
+        _profile_call("live batch + queries", batch_and_queries)
+    del served, inc
+    return out
+
+
+def check_server_launches(dev, runs: dict[str, dict]) -> dict[str, list]:
+    """The largest launch of ``sorted_member``, ``join_bounds`` and
+    ``rle_expand`` in each server phase (``runs``: path -> its numbers):
+    the kernel held against its plain version exactly and timed against
+    its library call in alternating turns, event-timed, with its host
+    time, the plain version's time and the bytes bound.  No profiler trace
+    is taken here: in earlier runs, traces taken after the full-size
+    server phases lost device events (PERF.md §7), so the device-only
+    times and the checks of which kernels ran stay with phase 12, which
+    runs before them."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+
+    out: dict[str, list] = {}
+    for name in ("sorted_member", "join_bounds", "rle_expand"):
+        kernel, plain = getattr(kernels, name), getattr(ref, name)
+        for path, run in runs.items():
+            shape = run["largest_launch"][name]
+            if not shape:
+                continue
+            rng = np.random.default_rng([ops.KERNELS.index(name), 8, 2])
+            args = _timed_args(name, path, shape, torch.int64, dev, rng)
+            err = _compare(name, path, "int64", _as_list(kernel(*args)), _as_list(plain(*args)))
+            call = main_path_call(name, kernel, args)
+            ms, library_ms = alternating_ms(call, _library_call(name, args))
+            entry = {
+                "case": path,
+                "dtype": "int64",
+                "shape": dict(shape),
+                "ms": ms,
+                "library_ms": library_ms,
+                "device_ms": None,
+                "library_device_ms": None,
+                "host_ms": host_ms(call),
+                "plain_ms": cuda_ms(lambda: plain(*args)),
+                "bound_ms": _bytes(name, args, 8) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "max_abs_err": err,
+            }
+            log(f"[kernels] {name} int64 {path} {shape}: equal; {entry}")
+            out.setdefault(name, []).append(entry)
+    return out
+
+
 def count_syncs(program, dataset) -> int:
     """Host synchronisations of one more full-size load + materialise,
     as CUDA's sync debug mode reports them."""
@@ -1655,16 +1957,12 @@ def count_syncs(program, dataset) -> int:
 
     from repro_torch.core import CMatEngine
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            eng = CMatEngine(program, fused=True)
-            eng.load(dataset)
-            eng.materialise()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    def run():
+        eng = CMatEngine(program, fused=True)
+        eng.load(dataset)
+        eng.materialise()
+
+    return _count_syncs(run)[1]
 
 
 def _device_us(evt) -> float:
@@ -1723,10 +2021,16 @@ def _profile_phases(program, dataset, dictionary):
             ("distributed apply", dist_apply)]
 
 
-def profile_run(program, dataset, dictionary) -> None:
-    """Trace the CMat load and materialise, a pass of the query stream,
-    and the distributed materialise and a 1 % delete ``apply``, with
-    ``torch.profiler``: wall,
+#: the hand kernels' entry names, as the profiler lists them
+HAND_KERNELS = ("bucket_table_kernel", "bucket_probe_kernel", "empty_b_kernel",
+                "join_bounds_table_kernel", "join_bounds_probe_kernel",
+                "join_bounds_warp_kernel", "join_bounds_thread_kernel",
+                "rle_expand_kernel", "merge_path_kernel", "merge_count_kernel",
+                "fjd_kernel")
+
+
+def _profile_call(phase: str, call) -> None:
+    """Run ``call()`` once under ``torch.profiler`` and log its wall,
     device-busy time (kernels and copies as the card ran them) and its
     share of the wall, CUDA kernel launches issued, the top device and
     host operators, and the hand-written kernels' own device time."""
@@ -1734,39 +2038,42 @@ def profile_run(program, dataset, dictionary) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    hand = ("bucket_table_kernel", "bucket_probe_kernel", "empty_b_kernel",
-            "join_bounds_table_kernel", "join_bounds_probe_kernel",
-            "join_bounds_warp_kernel", "join_bounds_thread_kernel", "rle_expand_kernel",
-            "merge_path_kernel", "merge_count_kernel", "fjd_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    # host operators carry their kernels' device time too: count only
+    # the device's own events, or it is counted twice
+    dev = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
+                 key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in dev) / 1e6
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    log(f"[profile] {phase}: wall {wall:.3f} s under the profiler, device "
+        f"busy {busy:.3f} s, busy share {busy / wall:.3f}, "
+        f"cudaLaunchKernel {launches}")
+    for e in dev[:8]:
+        log(f"[profile] {phase} device: {_device_us(e) / 1e3:.1f} ms "
+            f"{e.count} x {e.key[:70]}")
+    for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        log(f"[profile] {phase} host: {e.self_cpu_time_total / 1e3:.1f} ms "
+            f"{e.count} x {e.key[:70]}")
+    for e in dev:
+        if any(k in e.key for k in HAND_KERNELS):
+            log(f"[profile] {phase} hand kernel: {_device_us(e) / 1e3:.3f} ms "
+                f"{e.count} x {e.key[:90]}")
+
+
+def profile_run(program, dataset, dictionary) -> None:
+    """Trace the CMat load and materialise, a pass of the query stream,
+    and the distributed materialise and a 1 % delete ``apply``
+    (:func:`_profile_call` each)."""
     for phase, prepare in _profile_phases(program, dataset, dictionary):
         call = prepare()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ka = prof.key_averages()
-        # host operators carry their kernels' device time too: count only
-        # the device's own events, or it is counted twice
-        dev = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
-                     key=_device_us, reverse=True)
-        busy = sum(_device_us(e) for e in dev) / 1e6
-        launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-        log(f"[profile] {phase}: wall {wall:.3f} s under the profiler, device "
-            f"busy {busy:.3f} s, busy share {busy / wall:.3f}, "
-            f"cudaLaunchKernel {launches}")
-        for e in dev[:8]:
-            log(f"[profile] {phase} device: {_device_us(e) / 1e3:.1f} ms "
-                f"{e.count} x {e.key[:70]}")
-        for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-            log(f"[profile] {phase} host: {e.self_cpu_time_total / 1e3:.1f} ms "
-                f"{e.count} x {e.key[:70]}")
-        for e in dev:
-            if any(k in e.key for k in hand):
-                log(f"[profile] {phase} hand kernel: {_device_us(e) / 1e3:.3f} ms "
-                    f"{e.count} x {e.key[:90]}")
-        del call, prof
+        _profile_call(phase, call)
+        del call
 
 
 def nvidia_smi() -> str:
@@ -1865,6 +2172,28 @@ def main() -> int:
     kernel_numbers = check_kernels(torch.device("cuda"), shapes, extra)
     kernel_numbers["join_bounds"]["path_sweep"] = sweep_join_bounds(torch.device("cuda"))
 
+    check_small_serve()
+    serve_program, serve_dataset, _ = lubm_like(
+        n_dept=4 * SERVE_SCALE, n_students=100 * SERVE_SCALE, n_courses=8 * SERVE_SCALE
+    )
+    t0 = time.perf_counter()
+    serve_oracle = flat_seminaive(serve_program, serve_dataset, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] flat oracle of --scale {SERVE_SCALE} on the card (plain versions only): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(int(v.shape[0]) for v in serve_oracle.values())} facts")
+    serve = run_serve(serve_oracle)
+    del serve_oracle, serve_program, serve_dataset
+    torch.cuda.empty_cache()
+    live = run_live(serve["n_facts"], args.profile)
+    torch.cuda.empty_cache()
+
+    for name, entries in check_server_launches(
+            torch.device("cuda"), {"serve": serve, "live": live}).items():
+        kernel_numbers[name]["timings"] += entries
+        kernel_numbers[name]["max_abs_err"] = max(
+            kernel_numbers[name]["max_abs_err"], *(e["max_abs_err"] for e in entries))
+
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
     if args.profile:
@@ -1876,6 +2205,8 @@ def main() -> int:
         "distributed": dist["launches"],
         "distributed_apply": dist["apply_launches"],
         "closure": closure["launches"],
+        "serve": serve["launches"],
+        "live": live["launches"],
     }
     kernels_line = []
     for name in ops.KERNELS:

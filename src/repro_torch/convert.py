@@ -4,7 +4,9 @@ The JAX package's state (its ``ColumnStore`` nodes, its meta-facts, its
 datasets) is handed over as plain numpy arrays and tuples, so the port
 imports nothing of that package.  With these, the same compressed state
 can be fed to the port's ``match`` / ``sjoin`` / ``xjoin`` / ``elim_dup``
-and to the reference's.
+and to the reference's; :func:`incremental_from_numpy` hands over a whole
+incremental store, so a batch can be applied to the same state in both
+packages.
 """
 
 from __future__ import annotations
@@ -15,8 +17,15 @@ import torch
 from .core.columns import ColumnStore, _Concat, _Leaf
 from .core.metafacts import FactStore, MetaFact
 from .core.util import resolve_device
+from .incremental import IncrementalStore
+from .incremental.eval import PhaseStats
 
-__all__ = ["dataset_to_device", "facts_from_numpy", "store_from_numpy"]
+__all__ = [
+    "dataset_to_device",
+    "facts_from_numpy",
+    "incremental_from_numpy",
+    "store_from_numpy",
+]
 
 
 def store_from_numpy(nodes: dict, next_id: int, device=None) -> ColumnStore:
@@ -73,3 +82,39 @@ def dataset_to_device(dataset: dict, device=None) -> dict[str, torch.Tensor]:
         pred: torch.as_tensor(np.asarray(rows, dtype=np.int64)).to(dev)
         for pred, rows in dataset.items()
     }
+
+
+def incremental_from_numpy(program, *, nodes: dict, next_id: int, meta_facts,
+                           explicit: dict, rows: dict, counts: dict, epoch: int,
+                           round_no: int, counting: bool = True,
+                           device=None) -> IncrementalStore:
+    """A port :class:`IncrementalStore` holding a reference store's state:
+    its mu-nodes and next id (as for :func:`store_from_numpy`), its
+    meta-facts (as for :func:`facts_from_numpy`), the explicit rows, the
+    row index's rows and the count columns (``{pred: array}``), the epoch
+    and the round counter that tags added meta-facts.  The journal and
+    the plan cache start empty."""
+    inc = IncrementalStore(program, counting=counting, device=device)
+    dev = inc.device
+    store = store_from_numpy(nodes, next_id, dev)
+    facts = facts_from_numpy(store, meta_facts)
+    inc.engine.store = inc.store = store
+    inc.engine.facts = inc.facts = facts
+
+    def tensors(arrays: dict) -> dict[str, torch.Tensor]:
+        # copies: the store updates counts in place, which must never
+        # write into the caller's arrays
+        return {p: torch.tensor(np.asarray(a, dtype=np.int64), device=dev)
+                for p, a in arrays.items()}
+
+    inc.explicit = tensors(explicit)
+    for pred, r in inc.explicit.items():
+        inc.arities.setdefault(pred, int(r.shape[1]))
+    for pred, r in tensors(rows).items():
+        inc.rows.seed_sorted(pred, r)
+    if counting:
+        inc.counts = tensors(counts)
+    inc.stats_view = PhaseStats(facts, inc.arities)
+    inc.epoch = int(epoch)
+    inc._round = int(round_no)
+    return inc

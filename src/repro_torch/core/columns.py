@@ -53,13 +53,17 @@ def _n_runs_host(ids: list[int]) -> int:
 
 
 class _Leaf:
-    __slots__ = ("run_values", "run_counts", "length")
+    __slots__ = ("run_values", "run_counts", "length", "owned")
 
     def __init__(self, run_values: torch.Tensor, run_counts: torch.Tensor,
-                 length: int):
+                 length: int, owned: bool = False):
         self.run_values = run_values
         self.run_counts = run_counts
         self.length = length
+        #: the payload is a disjoint slice of a block made for a batch of
+        #: leaves: its bytes are the leaf's own, though the tensors view
+        #: a larger storage
+        self.owned = owned
 
 
 class _Concat:
@@ -94,12 +98,14 @@ class ColumnStore:
     # ------------------------------------------------------------------ #
     @staticmethod
     def _node_nbytes_of(node) -> int:
-        if isinstance(node, _Leaf):
-            return tensor_nbytes(node.run_values) + tensor_nbytes(node.run_counts)
+        if isinstance(node, _Leaf):  # int64 values and counts, one per run
+            return 16 * node.run_values.shape[0]
         return 8 * len(node.children)
 
     def _account_add(self, cid: int, node) -> None:
-        if isinstance(node, _Leaf):
+        if isinstance(node, _Leaf) and node.owned:
+            owned, backed = self._node_nbytes_of(node), 0
+        elif isinstance(node, _Leaf):
             owned, backed = split_owned_backed(
                 (node.run_values, node.run_counts)
             )
@@ -127,6 +133,16 @@ class ColumnStore:
         if prev is not None:
             self._cache_nbytes -= tensor_nbytes(prev)
 
+    def recount_bytes(self) -> None:
+        """Rebuild the running counters from the node table (after
+        compaction swaps the table wholesale)."""
+        self._nbytes_owned = 0
+        self._nbytes_backed = 0
+        self._backed_by_id = {}
+        for cid, node in self._nodes.items():
+            self._account_add(cid, node)
+        self._cache_nbytes = sum(tensor_nbytes(a) for a in self._unfold_cache.values())
+
     def memory_report(self) -> dict[str, int]:
         """Owned node payload bytes, backed node bytes (slices of a larger
         block), unfold-cache bytes, and the node count."""
@@ -145,12 +161,96 @@ class ColumnStore:
         self._next_id += 1
         return cid
 
-    def _add_leaf(self, run_values, run_counts, length: int) -> int:
+    def _add_leaf(self, run_values, run_counts, length: int, owned: bool = False) -> int:
         cid = self._fresh()
-        node = _Leaf(run_values, run_counts, length)
+        node = _Leaf(run_values, run_counts, length, owned)
         self._nodes[cid] = node
         self._account_add(cid, node)
         return cid
+
+    def new_leaves(self, flat: torch.Tensor, starts: list[int],
+                   lengths: list[int]) -> list[int]:
+        """One leaf per part ``flat[starts[i]: starts[i] + lengths[i]]``,
+        created in the order given (ascending ids), as :meth:`new_leaf`
+        would create them one by one; each part's values stay cached as
+        its unfolding.  Parts must not overlap and may leave gaps.
+
+        One run-length pass covers every part: runs start at every part's
+        start and end and wherever the value changes; the run counts per
+        part and the index of each part's first run come to the host in
+        one read (two synchronisations in all, however many leaves).  The
+        leaves' payloads are disjoint slices of the batch's run block."""
+        n_parts = len(starts)
+        if n_parts == 0:
+            return []
+        dev = self.device
+        flat = flat.to(device=dev, dtype=_I64)
+        n = flat.shape[0]
+        # by start, an empty part before a part that starts where it does
+        order = sorted(range(n_parts), key=lambda i: (starts[i], lengths[i]))
+        s_sorted = [starts[i] for i in order]
+        e_sorted = [starts[i] + lengths[i] for i in order]
+        bounds = torch.tensor(s_sorted + e_sorted, dtype=_I64).to(dev)
+        part_starts, part_ends = bounds[:n_parts], bounds[n_parts:]
+        change = torch.ones(n + 1, dtype=torch.bool, device=dev)
+        if n > 1:
+            torch.ne(flat[1:], flat[:-1], out=change[1:n])
+        change[bounds] = True
+        run_pos = torch.nonzero(change[:n]).flatten()
+        run_end = torch.empty_like(run_pos)
+        run_end[:-1] = run_pos[1:]
+        run_end[-1:] = n
+        run_values, run_counts = flat[run_pos], run_end - run_pos
+        # each run lies in at most one part (runs break at every bound)
+        part = torch.searchsorted(part_starts, run_pos, right=True) - 1
+        inside = (part >= 0) & (run_pos < part_ends[part.clamp(min=0)])
+        per_part = torch.zeros(n_parts, dtype=_I64, device=dev).scatter_add_(
+            0, part.clamp(min=0), inside.to(_I64))
+        first = torch.searchsorted(run_pos, part_starts)
+        counts, firsts = torch.stack([per_part, first]).tolist()
+        # the parts' runs and values as views, in sorted order: split with
+        # the gaps between parts as pieces of their own
+        run_sizes, value_sizes = [], []
+        prev_run = prev_value = 0
+        for r in range(n_parts):
+            run_sizes += (firsts[r] - prev_run, counts[r])
+            prev_run = firsts[r] + counts[r]
+            value_sizes += (s_sorted[r] - prev_value, e_sorted[r] - s_sorted[r])
+            prev_value = e_sorted[r]
+        run_sizes.append(run_pos.shape[0] - prev_run)
+        value_sizes.append(n - prev_value)
+        rvs = torch.split(run_values, run_sizes)[1::2]
+        rcs = torch.split(run_counts, run_sizes)[1::2]
+        values = torch.split(flat, value_sizes)[1::2]
+        rank_of = [0] * n_parts
+        for rank, i in enumerate(order):
+            rank_of[i] = rank
+        base = self._next_id
+        nodes, cache = self._nodes, self._unfold_cache
+        for i in range(n_parts):
+            r = rank_of[i]
+            nodes[base + i] = _Leaf(rvs[r], rcs[r], lengths[i], True)
+            cache[base + i] = values[r]
+        self._next_id = base + n_parts
+        self._nbytes_owned += 16 * sum(counts)
+        self._cache_nbytes += 8 * sum(lengths)
+        return list(range(base, base + n_parts))
+
+    def new_constants(self, values: list[int], counts: list[int]) -> list[int]:
+        """RLE leaves ``values[i] * counts[i]``, created in order, their
+        payloads sent to the device in one copy (no launch per leaf)."""
+        n_leaves = len(values)
+        if not n_leaves:
+            return []
+        block = torch.tensor([values, counts], dtype=_I64).to(self.device)
+        rvs, rcs = torch.split(block[0], 1), torch.split(block[1], 1)
+        base = self._next_id
+        nodes = self._nodes
+        for i, c in enumerate(counts):
+            nodes[base + i] = _Leaf(rvs[i], rcs[i], c, True)
+        self._next_id = base + n_leaves
+        self._nbytes_owned += 16 * n_leaves
+        return list(range(base, base + n_leaves))
 
     def new_leaf(self, values: torch.Tensor) -> int:
         """Create a leaf meta-constant from a constant vector (stored RLE;
@@ -160,6 +260,19 @@ class ColumnStore:
         cid = self._add_leaf(rv, rc, int(values.shape[0]))
         self._cache_set(cid, values)
         return cid
+
+    def new_leaf_rle(self, run_values: torch.Tensor, run_counts: torch.Tensor,
+                     length: int | None = None) -> int:
+        """Leaf from an RLE payload (moved to the store's device), handed
+        over to the leaf: its bytes count as the leaf's own, though it may
+        slice a larger block of disjoint payloads.  ``length`` is the
+        payload's unfolded length when the caller knows it; otherwise it
+        is read from the counts (one host read)."""
+        rv = run_values.to(device=self.device, dtype=_I64)
+        rc = run_counts.to(device=self.device, dtype=_I64)
+        if length is None:
+            length = int(rc.sum())
+        return self._add_leaf(rv, rc, int(length), owned=True)
 
     def new_constant(self, value: int, count: int) -> int:
         """RLE leaf ``value * count`` (the paper's ``d * n`` notation)."""
@@ -184,6 +297,9 @@ class ColumnStore:
     # ------------------------------------------------------------------ #
     # accessors
     # ------------------------------------------------------------------ #
+    def is_leaf(self, cid: int) -> bool:
+        return isinstance(self._nodes[cid], _Leaf)
+
     def length(self, cid: int) -> int:
         return self._nodes[cid].length
 
@@ -248,6 +364,78 @@ class ColumnStore:
                 stack.extend(node.children)
         return seen
 
+    def topo_order(self, roots) -> list[int]:
+        """Reachable node ids, children before parents (the order
+        compaction rebuilds the DAG in)."""
+        order: list[int] = []
+        seen: set[int] = set()
+        stack: list[tuple[int, bool]] = [(cid, False) for cid in roots]
+        while stack:
+            cid, expanded = stack.pop()
+            if expanded:
+                order.append(cid)
+                continue
+            if cid in seen:
+                continue
+            seen.add(cid)
+            stack.append((cid, True))
+            node = self._nodes[cid]
+            if isinstance(node, _Concat):
+                stack.extend((c, False) for c in node.children if c not in seen)
+        return order
+
+    def leaf_payload(self, cid: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """RLE payload ``(run_values, run_counts)`` of a leaf."""
+        node = self._nodes[cid]
+        assert isinstance(node, _Leaf)
+        return node.run_values, node.run_counts
+
+    def children(self, cid: int) -> list[int]:
+        node = self._nodes[cid]
+        return list(node.children) if isinstance(node, _Concat) else []
+
+    def node_nbytes(self, cid: int) -> int:
+        """Bytes of one node's payload (RLE tensors for leaves, 8 per
+        child id for composites)."""
+        return self._node_nbytes_of(self._nodes[cid])
+
+    def total_nbytes(self) -> int:
+        """Bytes across all live nodes, reachable or not (the running
+        counters: owned and backed bytes together)."""
+        return self._nbytes_owned + self._nbytes_backed
+
+    def leaf_rle_stats(self, ids) -> tuple[int, int]:
+        """``(cells, runs)`` over the leaves among ``ids``."""
+        cells = runs = 0
+        for cid in ids:
+            node = self._nodes[cid]
+            if isinstance(node, _Leaf):
+                cells += node.length
+                runs += int(node.run_values.shape[0])
+        return cells, runs
+
+    def expanded_nbytes(self, roots) -> int:
+        """Tree-expanded bytes: each node counted once per path from the
+        roots (storage with no DAG sharing)."""
+        memo: dict[int, int] = {}
+        total = 0
+        for root in roots:
+            stack: list[tuple[int, bool]] = [(root, False)]
+            while stack:
+                cid, expanded = stack.pop()
+                if not expanded and cid in memo:
+                    continue
+                node = self._nodes[cid]
+                if isinstance(node, _Leaf):
+                    memo[cid] = self._node_nbytes_of(node)
+                elif expanded:
+                    memo[cid] = 8 * len(node.children) + sum(memo[c] for c in node.children)
+                else:
+                    stack.append((cid, True))
+                    stack.extend((c, False) for c in node.children if c not in memo)
+            total += memo[root]
+        return total
+
     # ------------------------------------------------------------------ #
     # unfolding
     # ------------------------------------------------------------------ #
@@ -269,6 +457,58 @@ class ColumnStore:
         self._cache_set(cid, out)
         return out
 
+    def unfold_cat(self, cids, meter=None) -> torch.Tensor:
+        """``torch.cat`` of the unfoldings of ``cids``, in order.  The
+        leaves among them not yet cached unfold together, in one
+        ``rle_expand`` over their concatenated runs, and each caches its
+        slice of the output, as :meth:`unfold` one by one would cache it.
+
+        ``meter(cached_cells, fresh_cells)``, when given, receives what
+        :meth:`unfold` one by one would have found cached and unfolded
+        afresh."""
+        cids = list(cids)
+        if not cids:
+            if meter is not None:
+                meter(0, 0)
+            return torch.zeros(0, dtype=_I64, device=self.device)
+        cache = self._unfold_cache
+        parts = [cache.get(c) for c in cids]
+        fresh = list(dict.fromkeys(c for c, t in zip(cids, parts) if t is None))
+        composite = False
+        if fresh:
+            nodes = [self._nodes[c] for c in fresh]
+            leaves = [(c, nd) for c, nd in zip(fresh, nodes) if isinstance(nd, _Leaf)]
+            composite = len(leaves) < len(fresh)
+            if len(leaves) > 1:
+                lengths = [nd.length for _, nd in leaves]
+                out = rle_expand(
+                    torch.cat([nd.run_values for _, nd in leaves]),
+                    torch.cat([nd.run_counts for _, nd in leaves]),
+                    sum(lengths),
+                )
+                for (c, _), piece in zip(leaves, torch.split(out, lengths)):
+                    cache[c] = piece
+                self._cache_nbytes += 8 * sum(lengths)
+            if meter is not None and composite:
+                # a composite caches its children as it unfolds: meter the
+                # calls one by one
+                seen: set[int] = set()
+                cached = unfolded = 0
+                for c, t in zip(cids, parts):
+                    n = self._nodes[c].length
+                    if t is not None or c in seen:
+                        cached += n
+                    else:
+                        unfolded += n
+                        seen.update(self.reachable([c]))
+                meter(cached, unfolded)
+                meter = None
+            parts = [t if t is not None else self.unfold(c) for c, t in zip(cids, parts)]
+        if meter is not None:
+            fresh_cells = sum(self._nodes[c].length for c in fresh)
+            meter(sum(t.shape[0] for t in parts) - fresh_cells, fresh_cells)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def _invalidate_up(self, cid: int) -> None:
         stack = [cid]
         while stack:
@@ -279,6 +519,25 @@ class ColumnStore:
     # ------------------------------------------------------------------ #
     # the paper's shuffle split (Algorithm 4, lines 47-52)
     # ------------------------------------------------------------------ #
+    def copy_splits(self, requests: list[tuple[int, int, int]],
+                    keep: torch.Tensor) -> list[int]:
+        """Batched copy-mode :meth:`split`: for each ``(cid, offset,
+        kept)`` a fresh leaf holding the survivors of ``cid`` under
+        ``keep[offset: offset + length(cid)]`` (``kept`` of them, known on
+        the host), created in order.  Same nodes as one ``split(...,
+        inplace=False)`` per request, with a constant number of
+        synchronisations."""
+        if not requests:
+            return []
+        self.n_splits += len(requests)
+        values = self.unfold_cat([c for c, _, _ in requests])
+        mask = torch.cat([keep[off: off + self.length(c)] for c, off, _ in requests])
+        starts, total = [], 0
+        for _, _, k in requests:
+            starts.append(total)
+            total += k
+        return self.new_leaves(values[mask], starts, [k for _, _, k in requests])
+
     def split(self, cid: int, keep: torch.Tensor, inplace: bool = True) -> int:
         """Split a column by a boolean mask over its unfolding; returns the
         meta-constant holding the surviving positions.

@@ -9,7 +9,8 @@ column with the fewest distinct values maximises run-length encoding.
 
 The sort is a chain of stable sorts from the least significant key up
 (``np.lexsort`` has no torch counterpart); the segment boundaries come to
-the host once per call as one index list.
+the host once per call as one index list, and every segment's leaves are
+made in one batch.
 """
 
 from __future__ import annotations
@@ -82,11 +83,24 @@ def compress_rows(
         rows = sort_for_compression(rows)
     starts = torch.nonzero(segment_breaks(rows)).flatten().tolist()
     ends = starts[1:] + [n]
-    out = []
-    for s, e in zip(starts, ends):
-        cols = tuple(store.new_leaf(rows[s:e, j]) for j in range(rows.shape[1]))
-        out.append((cols, e - s))
-    return out
+    return _segment_leaves(rows, list(zip(starts, ends)), store)
+
+
+def _segment_leaves(rows: torch.Tensor, segments, store: ColumnStore):
+    """``(column_ids, length)`` per ``[s, e)`` row segment: one leaf per
+    segment and column, created segment by segment in one batch
+    (:meth:`ColumnStore.new_leaves` over the rows laid out column by
+    column)."""
+    n, k = rows.shape
+    flat = rows.t().contiguous().reshape(-1)  # column j at [j * n, (j + 1) * n)
+    ids = store.new_leaves(
+        flat,
+        [j * n + s for s, _ in segments for j in range(k)],
+        [e - s for s, e in segments for _ in range(k)],
+    )
+    return [
+        (tuple(ids[i * k: (i + 1) * k]), e - s) for i, (s, e) in enumerate(segments)
+    ]
 
 
 def compress_grouped(
@@ -109,11 +123,13 @@ def compress_grouped(
     out: list[list[tuple[tuple[int, ...], int]]] = [
         [] for _ in range(len(group_starts))
     ]
+    segments, owner = [], []
     for s, e, g in zip(seg_start_idx.tolist(), seg_end_idx.tolist(),
                        group_of_seg.tolist()):
         if g < 0 or s >= group_ends[g]:
             continue  # segment not covered by any group
-        e = min(e, int(group_ends[g]))
-        cols = tuple(store.new_leaf(rows[s:e, j]) for j in range(k))
-        out[g].append((cols, e - s))
+        segments.append((s, min(e, int(group_ends[g]))))
+        owner.append(g)
+    for g, item in zip(owner, _segment_leaves(rows, segments, store)):
+        out[g].append(item)
     return out

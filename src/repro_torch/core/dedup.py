@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .columns import ColumnStore
+from .joins import split_survivors
 from .metafacts import FactStore, MetaFact
 from .util import (
     factorize_rows,
@@ -101,7 +102,7 @@ def elim_dup(
         if arity == 0:
             continue
         cols = [
-            torch.cat([store.unfold(c[j]) for c, _ in cand])
+            store.unfold_cat([c[j] for c, _ in cand])
             for j in range(arity)
         ]
         rows = torch.stack(cols, dim=1)
@@ -121,19 +122,9 @@ def elim_dup(
             keep = not_in_m & first_occurrence_mask(codes_new)
 
         kept = segment_counts(keep, [length for _, length in cand])
-        off = 0
-        for (cand_cols, length), k in zip(cand, kept):
-            if k == length:
-                delta.append(MetaFact(pred, cand_cols, length, round_tag))
-            elif k:
-                sub = keep[off: off + length]
-                # split each distinct column id exactly once (a head like
-                # ``P(x, x)`` repeats one id)
-                split_of = {
-                    c: store.split(c, sub, inplace=inplace_splits)
-                    for c in dict.fromkeys(cand_cols)
-                }
-                new_cols = tuple(split_of[c] for c in cand_cols)
-                delta.append(MetaFact(pred, new_cols, k, round_tag))
-            off += length
+        # each distinct column id is split once (a head like ``P(x, x)``
+        # repeats one id)
+        for item in split_survivors(store, cand, keep, kept, inplace_splits):
+            if item is not None:
+                delta.append(MetaFact(pred, item[0], item[1], round_tag))
     return delta

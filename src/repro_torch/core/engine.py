@@ -66,7 +66,7 @@ class _OldPartitionSnapshots:
             fresh = [mf for mf in facts.all(pred) if upto <= mf.round < r]
             if fresh:
                 cols = [
-                    torch.cat([self.store.unfold(mf.columns[j]) for mf in fresh])
+                    self.store.unfold_cat([mf.columns[j] for mf in fresh])
                     for j in range(fresh[0].arity)
                 ]
                 merged = torch.cat([sr.rows, torch.stack(cols, dim=1)])

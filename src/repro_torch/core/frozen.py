@@ -222,7 +222,7 @@ class FrozenFacts:
             if mfs:
                 unfolded = torch.stack(
                     [
-                        torch.cat([self.store.unfold(mf.columns[j]) for mf in mfs])
+                        self.store.unfold_cat([mf.columns[j] for mf in mfs])
                         for j in range(mfs[0].arity)
                     ],
                     dim=1,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..kernels import join_bounds
@@ -23,7 +24,7 @@ from .compress import compress_grouped, fewest_distinct_first, lexsort
 from .metafacts import MetaFact
 from .util import factorize_rows, multicol_member, segment_counts
 
-__all__ = ["SubstSet", "match", "sjoin", "xjoin"]
+__all__ = ["SubstSet", "match", "sjoin", "split_survivors", "xjoin"]
 
 _I64 = torch.int64
 
@@ -51,10 +52,51 @@ def _unfold_cols(store: ColumnStore, items, var_idx: list[int]) -> torch.Tensor:
         n = sum(length for _, length in items)
         return torch.zeros((n, 0), dtype=_I64, device=store.device)
     cols = [
-        torch.cat([store.unfold(cols_ids[j]) for cols_ids, _ in items])
+        store.unfold_cat([cols_ids[j] for cols_ids, _ in items])
         for j in var_idx
     ]
     return torch.stack(cols, dim=1)
+
+
+def split_survivors(
+    store: ColumnStore,
+    items,
+    keep: torch.Tensor,
+    kept: list[int],
+    inplace_splits: bool = False,
+) -> list:
+    """The paper's shuffle (Algorithm 4) over consecutive ``(column ids,
+    length)`` items: ``keep`` masks their concatenation and ``kept`` holds
+    each item's survivor count (host).  Per item: the item itself when
+    every position survives, ``None`` when none does, else each distinct
+    column split to the survivors.  Copy-mode splits run as one batch
+    (:meth:`ColumnStore.copy_splits`), creating the nodes one split per
+    column would, in the same order."""
+    lengths = np.fromiter((length for _, length in items), dtype=np.int64,
+                          count=len(items))
+    kept_np = np.asarray(kept, dtype=np.int64)
+    offsets = np.cumsum(lengths) - lengths
+    # untouched items are shared; only the partly kept ones are visited
+    out: list = [item if k == length else None
+                 for item, k, length in zip(items, kept, lengths.tolist())]
+    requests: list[tuple[int, int, int]] = []
+    pending = []
+    for i in np.flatnonzero((kept_np > 0) & (kept_np < lengths)).tolist():
+        cols_ids, length = items[i]
+        k, off = kept[i], int(offsets[i])
+        distinct = list(dict.fromkeys(cols_ids))
+        if inplace_splits:
+            sub = keep[off: off + length]
+            split_of = {c: store.split(c, sub, inplace=True) for c in distinct}
+            out[i] = (tuple(split_of[c] for c in cols_ids), k)
+        else:
+            pending.append((i, cols_ids, distinct, len(requests)))
+            requests.extend((c, off, k) for c in distinct)
+    ids = store.copy_splits(requests, keep)
+    for i, cols_ids, distinct, first in pending:
+        split_of = dict(zip(distinct, ids[first: first + len(distinct)]))
+        out[i] = (tuple(split_of[c] for c in cols_ids), kept[i])
+    return out
 
 
 def _filter_items(
@@ -66,22 +108,9 @@ def _filter_items(
     """Keep only the positions of ``mask`` in each item, via the paper's
     shuffle: untouched items are shared as-is; touched items have every
     column split (Algorithm 4)."""
-    out = SubstSet(subst.vars)
-    lengths = [length for _, length in subst.items]
-    kept = segment_counts(mask, lengths)
-    off = 0
-    for (cols_ids, length), k in zip(subst.items, kept):
-        if k == length:
-            out.items.append((cols_ids, length))
-        elif k:
-            sub = mask[off: off + length]
-            split_of = {
-                c: store.split(c, sub, inplace=inplace_splits)
-                for c in dict.fromkeys(cols_ids)
-            }
-            out.items.append((tuple(split_of[c] for c in cols_ids), k))
-        off += length
-    return out
+    kept = segment_counts(mask, [length for _, length in subst.items])
+    items = split_survivors(store, subst.items, mask, kept, inplace_splits)
+    return SubstSet(subst.vars, [item for item in items if item is not None])
 
 
 # --------------------------------------------------------------------- #
@@ -101,13 +130,15 @@ def match(
         atom.terms
     )
     out = SubstSet(vars_)
+    arity = len(atom.terms)
+    if not needs_mask:
+        # distinct variables only: each meta-fact's columns, in order
+        out.items = [(mf.columns, mf.length) for mf in facts if len(mf.columns) == arity]
+        return out
     for mf in facts:
-        if len(mf.columns) != len(atom.terms):
+        if len(mf.columns) != arity:
             continue
         cols = tuple(mf.columns[var_first_pos[v]] for v in vars_)
-        if not needs_mask:
-            out.items.append((cols, mf.length))
-            continue
         mask = torch.ones(mf.length, dtype=torch.bool, device=store.device)
         for pos, t in enumerate(atom.terms):
             if isinstance(t, int):  # constant
@@ -250,13 +281,20 @@ def xjoin(
     hi_list = m_l_hi.tolist()
     l_host = l_all_s.cpu().tolist()
     n_left_vars = len(left.vars)
+    # every emitted constant leaf, in creation order, made in one batch
+    values: list[int] = []
+    counts: list[int] = []
+    emitted = []
     for g, (llo, lhi) in enumerate(zip(lo_list, hi_list)):
         pieces = groups[g]
         for li in range(llo, lhi):
             lrow = l_host[li]
             for piece_cols, plen in pieces:
-                cols = tuple(
-                    store.new_constant(lrow[j], plen) for j in range(n_left_vars)
-                ) + tuple(piece_cols)
-                out.items.append((cols, plen))
+                values.extend(lrow[:n_left_vars])
+                counts.extend([plen] * n_left_vars)
+                emitted.append((piece_cols, plen))
+    ids = store.new_constants(values, counts)
+    for e, (piece_cols, plen) in enumerate(emitted):
+        cols = tuple(ids[e * n_left_vars: (e + 1) * n_left_vars]) + tuple(piece_cols)
+        out.items.append((cols, plen))
     return out

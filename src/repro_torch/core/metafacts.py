@@ -54,6 +54,9 @@ class FactStore:
     def predicates(self):
         return self._facts.keys()
 
+    def replace(self, pred: str, facts: list[MetaFact]) -> None:
+        self._facts[pred] = facts
+
     def all(self, pred: str) -> list[MetaFact]:
         return self._facts.get(pred, [])
 
@@ -81,7 +84,7 @@ class FactStore:
         if not facts:
             return torch.zeros((0, 1), dtype=torch.int64, device=self.store.device)
         cols = [
-            torch.cat([self.store.unfold(mf.columns[j]) for mf in facts])
+            self.store.unfold_cat([mf.columns[j] for mf in facts])
             for j in range(facts[0].arity)
         ]
         return torch.stack(cols, dim=1)

@@ -8,6 +8,7 @@ CPU; everything else is plain tensor code on the tensors' own device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import sorted_member as _member_kernel
@@ -172,10 +173,9 @@ def segment_counts(mask: torch.Tensor, lengths: list[int]) -> list[int]:
         return [int(mask.sum())]
     csum = torch.zeros(mask.shape[0] + 1, dtype=_I64, device=mask.device)
     torch.cumsum(mask, 0, out=csum[1:])
-    bounds = [0]
-    for ln in lengths:
-        bounds.append(bounds[-1] + ln)
-    at = csum[torch.tensor(bounds, dtype=_I64).to(mask.device)]
+    bounds = np.zeros(len(lengths) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=bounds[1:])
+    at = csum[torch.from_numpy(bounds).to(mask.device)]
     return (at[1:] - at[:-1]).tolist()
 
 

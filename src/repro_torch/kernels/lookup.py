@@ -10,31 +10,23 @@ from __future__ import annotations
 
 import torch
 
-from ..obs import get_registry
+from . import ops
 from .sorted_member import sorted_member
 
 __all__ = ["in_set"]
-
-#: the metrics-registry scope of kernel traffic (``kernels.<op>.calls``,
-#: ``kernels.<op>.elements``, ``kernels.kernel_launches``)
-_SCOPE = "kernels."
 
 
 def in_set(values: torch.Tensor, constants) -> torch.Tensor:
     """Boolean mask ``values[i] in constants``, on ``values``' device.
 
     ``constants`` is a tensor or a sequence of ids.  On a card the call
-    launches ``sorted_member`` and is metered in the registry, as each
-    kernel call of the query path is; on the CPU it takes the plain
-    version and is not metered."""
+    launches ``sorted_member`` and is metered in the registry
+    (``kernels.in_set.*``, as :mod:`.ops` meters the facade); on the CPU
+    it takes the plain version and is not metered."""
     values = values.to(torch.int64).contiguous()
     constants = torch.as_tensor(constants, dtype=torch.int64, device=values.device)
     if values.shape[0] == 0 or constants.shape[0] == 0:
         return torch.zeros(values.shape[0], dtype=torch.bool, device=values.device)
     mask = sorted_member(values, torch.sort(constants.reshape(-1)).values)
-    if values.is_cuda:
-        reg = get_registry()
-        reg.counter(f"{_SCOPE}in_set.calls").inc()
-        reg.counter(f"{_SCOPE}in_set.elements").inc(int(values.numel()))
-        reg.counter(f"{_SCOPE}kernel_launches").inc()
+    ops.metered("in_set", values.numel(), values)
     return mask

@@ -1,4 +1,5 @@
-"""Launch plumbing shared by the kernel wrappers, and the launch meter.
+"""Launch plumbing shared by the kernel wrappers, the launch meter, and
+the kernel facade with its registry meter.
 
 Every wrapper checks its operands with :func:`check_keys`, takes the plain
 PyTorch version (:mod:`.ref`) for tensors on the CPU, and otherwise calls
@@ -6,24 +7,42 @@ PyTorch version (:mod:`.ref`) for tensors on the CPU, and otherwise calls
 raises on a launch error.  There is no fallback: a CUDA tensor is served by
 the kernel or the call raises.
 
-The meter is a plain integer per kernel: a wrapper adds one to its count
-where it launches its kernel and nowhere else (CPU calls do not count), so
-a run can show that the main path went through every kernel.
+The launch meter is a plain integer per kernel: a wrapper adds one to its
+count where it launches its kernel and nowhere else (CPU calls do not
+count), so a run can show that the main path went through every kernel.
+
+The facade (:func:`member`, :func:`anti_join_mask`, :func:`expand_rle`,
+:func:`group_spans`, :func:`join_dedup`, :func:`merge_unique`) is the
+counterpart of the TPU package's ``kernels/ops.py``: each function calls
+its wrapper and, on a card, meters the call in the metrics registry under
+``kernels.<op>.calls``, ``kernels.<op>.elements`` and the cross-op total
+``kernels.kernel_launches``; :func:`meter`, :func:`launch_count` and
+:func:`meter_reset` read and reset that scope.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..obs import get_registry
 from . import build
 
 __all__ = [
     "KERNELS",
+    "anti_join_mask",
     "check_keys",
+    "expand_rle",
+    "group_spans",
+    "join_dedup",
     "launch",
+    "launch_count",
     "largest_launches",
     "launch_counts",
     "launch_shapes",
+    "member",
+    "merge_unique",
+    "meter",
+    "meter_reset",
     "note_launch",
     "reset_launch_counts",
 ]
@@ -119,3 +138,98 @@ def launch(kernel: str, entry: str, dtype: torch.dtype,
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{kernel}: launch of {entry} failed: {msg} ({err})")
+
+
+# --------------------------------------------------------------------- #
+# the facade and its registry meter
+# --------------------------------------------------------------------- #
+#: the metrics-registry scope of facade traffic
+_SCOPE = "kernels."
+
+
+def metered(op: str, n: int, operand: torch.Tensor) -> None:
+    """Meter one call of ``op`` over ``n`` elements when ``operand`` lies
+    on a card (CPU calls run the plain version and are not metered)."""
+    if operand.device.type == "cpu":
+        return
+    reg = get_registry()
+    reg.counter(f"{_SCOPE}{op}.calls").inc()
+    reg.counter(f"{_SCOPE}{op}.elements").inc(int(n))
+    reg.counter(f"{_SCOPE}kernel_launches").inc()
+
+
+def meter() -> dict[str, dict[str, int]]:
+    """Per-op facade traffic since the last reset, ``{op: {"calls",
+    "elements"}}``, ops never called left out."""
+    out: dict[str, dict[str, int]] = {}
+    for name, val in get_registry().snapshot(_SCOPE).items():
+        rest = name[len(_SCOPE):]
+        if "." not in rest:
+            continue  # the scope-level total
+        op, field = rest.rsplit(".", 1)
+        if field not in ("calls", "elements"):
+            continue
+        out.setdefault(op, {"calls": 0, "elements": 0})[field] = int(val)
+    return {op: m for op, m in out.items() if m["calls"]}
+
+
+def launch_count() -> int:
+    """Metered kernel calls since the last ``kernels.`` reset."""
+    return int(get_registry().snapshot(_SCOPE).get(f"{_SCOPE}kernel_launches", 0))
+
+
+def meter_reset() -> None:
+    """Zero the ``kernels.`` registry scope only."""
+    get_registry().reset(_SCOPE)
+
+
+def member(a: torch.Tensor, b_sorted: torch.Tensor) -> torch.Tensor:
+    """``out[i] = a[i] in b_sorted`` (the semi-join filter)."""
+    from .sorted_member import sorted_member
+
+    metered("member", a.numel(), a)
+    return sorted_member(a, b_sorted)
+
+
+def anti_join_mask(new: torch.Tensor, old_sorted: torch.Tensor) -> torch.Tensor:
+    """Mask of ``new`` elements not in ``old_sorted`` (the dedup test of
+    Algorithm 6)."""
+    return ~member(new, old_sorted)
+
+
+def expand_rle(run_values: torch.Tensor, run_counts: torch.Tensor,
+               total: int) -> torch.Tensor:
+    """Unfold an RLE leaf meta-constant into ``total`` constants."""
+    from .rle_expand import rle_expand
+
+    metered("expand_rle", int(total), run_values)
+    return rle_expand(run_values, run_counts, int(total))
+
+
+def group_spans(l_keys: torch.Tensor, r_sorted: torch.Tensor):
+    """Per-left-key ``[lo, hi)`` spans in the sorted right keys (the
+    cross-join group locator of Algorithm 5)."""
+    from .join_bounds import join_bounds
+
+    metered("group_spans", l_keys.numel(), l_keys)
+    return join_bounds(l_keys, r_sorted)
+
+
+def join_dedup(l_keys: torch.Tensor, l_payload: torch.Tensor,
+               r_keys_sorted: torch.Tensor, r_payload: torch.Tensor, *,
+               capacity: int):
+    """Span probe, gather, sort and dedup in one launch; see
+    :func:`repro_torch.kernels.fused.fused_join_dedup`."""
+    from .fused import fused_join_dedup
+
+    metered("join_dedup", l_keys.numel(), l_keys)
+    return fused_join_dedup(l_keys, l_payload, r_keys_sorted, r_payload, capacity)
+
+
+def merge_unique(buf: torch.Tensor, fresh: torch.Tensor):
+    """Sorted-unique merge of ``fresh`` into ``buf`` in one launch; see
+    :func:`repro_torch.kernels.fused.merge_sorted_unique`."""
+    from .fused import merge_sorted_unique
+
+    metered("merge_unique", fresh.numel(), fresh)
+    return merge_sorted_unique(buf, fresh)

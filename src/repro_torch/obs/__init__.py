@@ -3,12 +3,28 @@
 * :func:`span` — nested host-side tracing spans (free when disabled);
 * :func:`get_registry` — named counters/gauges/histograms;
 * :func:`register_reporter` — weak byte reporters (:mod:`.memory`);
-* :func:`publish_materialisation`, :func:`publish_distributed` — stats
-  dataclass -> registry.
+* :func:`publish_materialisation`, :func:`publish_distributed`,
+  :func:`publish_incremental`, :func:`publish_query_cache` — stats ->
+  registry;
+* :func:`sample_memory`, :func:`publish_predicate_effectiveness` — the
+  ``mem.*`` roll-up;
+* :func:`write_chrome_trace`, :func:`write_metrics` — exporters.
 """
 
-from .adapters import publish_distributed, publish_materialisation
-from .memory import MemoryAccountant, get_accountant, register_reporter
+from .adapters import (
+    publish_distributed,
+    publish_incremental,
+    publish_materialisation,
+    publish_query_cache,
+)
+from .export import chrome_trace, write_chrome_trace, write_metrics
+from .memory import (
+    MemoryAccountant,
+    get_accountant,
+    publish_predicate_effectiveness,
+    register_reporter,
+    sample_memory,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -26,14 +42,21 @@ __all__ = [
     "MemoryAccountant",
     "MetricsRegistry",
     "Tracer",
+    "chrome_trace",
     "get_accountant",
     "get_registry",
     "get_tracer",
     "instant",
     "publish_distributed",
+    "publish_incremental",
     "publish_materialisation",
+    "publish_predicate_effectiveness",
+    "publish_query_cache",
     "register_reporter",
+    "sample_memory",
     "set_registry",
     "set_tracer",
     "span",
+    "write_chrome_trace",
+    "write_metrics",
 ]

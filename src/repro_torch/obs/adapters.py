@@ -13,10 +13,13 @@ from .metrics import MetricsRegistry, get_registry
 
 __all__ = [
     "DISTRIBUTED_COUNTERS",
+    "INCREMENTAL_COUNTERS",
     "MATERIALISATION_COUNTERS",
     "MATERIALISATION_GAUGES",
     "publish_distributed",
+    "publish_incremental",
     "publish_materialisation",
+    "publish_query_cache",
 ]
 
 #: MaterialisationStats fields that accumulate (counter semantics)
@@ -35,6 +38,24 @@ MATERIALISATION_COUNTERS = (
 #: MaterialisationStats fields that are levels (gauge semantics)
 MATERIALISATION_GAUGES = ("n_strata", "n_meta_facts", "n_facts")
 
+
+#: IncrementalStats extras (per-batch deltas -> counters)
+INCREMENTAL_COUNTERS = (
+    "n_del_explicit",
+    "n_add_explicit",
+    "n_overdeleted",
+    "n_rederived",
+    "n_deleted",
+    "n_inserted",
+    "n_count_updates",
+    "counting_strata",
+    "dred_strata",
+    "time_overdelete",
+    "time_delete",
+    "time_rederive",
+    "time_counting",
+    "time_insert",
+)
 
 #: DistributedStats extras beyond the materialisation base
 DISTRIBUTED_COUNTERS = (
@@ -75,9 +96,41 @@ def publish_materialisation(
     for f in MATERIALISATION_GAUGES:
         reg.gauge(f"{prefix}.{f}").set(getattr(stats, f))
     _publish_rule_scope(reg, stats)
-    # plan-cache counters are cumulative on the cache object: gauges
-    for key, val in (stats.plan_cache or {}).items():
+    _publish_plan_cache(reg, prefix, stats.plan_cache)
+
+
+def _publish_plan_cache(reg: MetricsRegistry, prefix: str, plan_cache) -> None:
+    """Plan-cache counters are cumulative on the cache object: gauges."""
+    for key, val in (plan_cache or {}).items():
         reg.gauge(f"{prefix}.plan_cache.{key}").set(val)
+
+
+def publish_incremental(
+    stats, registry: MetricsRegistry | None = None, prefix: str = "inc"
+) -> None:
+    """Publish an :class:`~repro_torch.incremental.IncrementalStats`
+    (the store calls this after every ``apply`` batch)."""
+    reg = registry if registry is not None else get_registry()
+    reg.counter(f"{prefix}.batches").inc()
+    for f in INCREMENTAL_COUNTERS + ("n_rule_applications", "time_total"):
+        reg.counter(f"{prefix}.{f}").inc(getattr(stats, f))
+    reg.gauge(f"{prefix}.epoch").set(stats.epoch)
+    reg.gauge(f"{prefix}.n_facts").set(stats.n_facts)
+    reg.gauge(f"{prefix}.n_meta_facts").set(stats.n_meta_facts)
+    reg.gauge(f"{prefix}.journal_bytes").set(stats.journal_bytes)
+    reg.histogram(f"{prefix}.apply_s").observe(stats.time_total)
+    _publish_plan_cache(reg, prefix, stats.plan_cache)
+
+
+def publish_query_cache(
+    engine, registry: MetricsRegistry | None = None, prefix: str = "query"
+) -> None:
+    """Publish a :class:`~repro_torch.query.QueryEngine`'s cache counters
+    (lifetime-cumulative on the engine, so gauges)."""
+    reg = registry if registry is not None else get_registry()
+    for key, val in engine.cache_stats().items():
+        reg.gauge(f"{prefix}.{key}").set(val)
+    reg.gauge(f"{prefix}.epoch").set(engine.epoch)
 
 
 def publish_distributed(

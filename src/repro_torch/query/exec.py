@@ -109,6 +109,15 @@ class _CountingStore:
             self._stats.cells_unfolded += out.numel()
         return out
 
+    def unfold_cat(self, cids) -> torch.Tensor:
+        """Batched :meth:`unfold`, metered as the calls one by one would
+        be."""
+        return self._store.unfold_cat(cids, meter=self._meter)
+
+    def _meter(self, cached: int, fresh: int) -> None:
+        self._stats.cells_cached += cached
+        self._stats.cells_unfolded += fresh
+
     def __getattr__(self, name):
         return getattr(self._store, name)
 

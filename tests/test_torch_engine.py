@@ -21,6 +21,7 @@ from repro.core.flat import flat_seminaive as j_flat_seminaive
 from repro.core.generators import bipartite, chain, lubm_like, paper_example, star
 from repro_torch.core import CMatEngine, ColumnStore, FlatEngine, flat_seminaive
 from repro_torch.core.distributed import DistributedEngine
+from repro_torch.incremental import IncrementalStore
 from repro_torch.kernels.buffers import FactBuffers
 
 WORKLOADS = [
@@ -160,7 +161,10 @@ def test_port_imports_neither_jax_nor_reference():
                for path in _port_files()[:-1]}
     assert {"core/frozen.py", "core/owl2rl.py", "kernels/lookup.py", "query/ast.py",
             "query/plan.py", "query/exec.py", "query/ref.py", "query/engine.py",
-            "query/batch.py", "query/__init__.py"} <= scanned
+            "query/batch.py", "query/__init__.py", "incremental/index.py",
+            "incremental/eval.py", "incremental/dred.py", "incremental/store.py",
+            "storage/__init__.py", "storage/compact.py", "launch/__init__.py",
+            "launch/serve_datalog.py", "obs/export.py", "obs/memory.py"} <= scanned
 
 
 @pytest.mark.parametrize(
@@ -173,9 +177,10 @@ def test_port_imports_neither_jax_nor_reference():
         lambda p, d: ColumnStore(),
         lambda p, d: FactBuffers(),
         lambda p, d: FactBuffers(dtype=torch.int32),
+        lambda p, d: IncrementalStore(p),
     ],
     ids=["cmat", "cmat-fused", "flat_seminaive", "distributed", "column-store",
-         "fact-buffers", "fact-buffers-int32"],
+         "fact-buffers", "fact-buffers-int32", "incremental-store"],
 )
 def test_entry_points_default_to_cuda_and_raise_without(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
