@@ -99,13 +99,43 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        counts, launches, ``max_memory_allocated``, and the
                        host syncs of one more batch; then the largest
                        ``sorted_member``, ``join_bounds`` and ``rle_expand``
-                       launch of phases 11 and 12 against the plain version
-                       and timed against the library call, event-timed
+                       launch of phases 11 and 12 are timed after phase 15
                        (the profiler's traces lose events after these
                        phases, so phase 9 runs before them);
-13. syncs            — the phase-4 materialisation once more with CUDA's
+13. durable          — a snapshot of the server at ``--scale 1`` written from
+                       the card and from the CPU: equal ``data.bin`` SHA-256,
+                       each restoring on the other device to the same
+                       ``to_dict``; then the live server at ``--scale 10000``
+                       with ``--checkpoint-dir`` and a checkpoint every 3
+                       batches, stopped by a simulated crash in place of its
+                       final checkpoint (snapshot at epoch 3, the 4th batch
+                       in the WAL), and the same server again in process
+                       with ``--restore``: ``[restore] warm start`` from
+                       epoch 3, one WAL batch replayed, epoch 4, the store
+                       equal to the crashed one, ``[live-verify] OK``; the
+                       checkpoint wall, the snapshot's bytes, the restore's
+                       snapshot and replay walls against the cold load, and
+                       the host syncs of the restore (its stream: 10
+                       queries);
+14. mvcc             — ``--mvcc --concurrency 4 --live --live-verify`` there,
+                       100 queries, warm-started from phase 13's directory,
+                       checkpointing every 2 batches: zero stale reads, the tier's epoch the
+                       restored epoch plus the batches applied, ``[live-verify]
+                       OK``; q/s, p50/p90/p99, apply p50/p99, epochs published
+                       and retired, the peak number pinned, launches, peak
+                       memory;
+15. serve-distributed — ``--distributed`` at ``--scale 270`` (the largest
+                       whose ids stay below the engine's 2**15), static and
+                       ``--live --live-verify``: ``[dist-verify] OK`` after the
+                       materialise and after the batches; the distributed
+                       materialise and apply walls and launches; then the
+                       largest ``sorted_member``, ``join_bounds`` and
+                       ``rle_expand`` launch of phases 11 and 12, and of
+                       phases 13-15 where larger, against the plain version
+                       and timed against the library call, event-timed;
+16. syncs            — the phase-4 materialisation once more with CUDA's
                        sync debug mode on, counting host synchronisations;
-14. profile          — only with ``--profile``: one more load and
+17. profile          — only with ``--profile``: one more load and
                        materialise of phase 4, one pass of phase 5's query
                        stream over it (snapshots and plans built before the
                        trace), and one more distributed materialise and 1 %
@@ -115,8 +145,8 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        more live batch and the 50 queries after it.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 7,
-8, 11 and 12) and read just after; every kernel of a path must have
-launched there.
+8, 11-15; phase 13's crashed run and its restore apart) and read just
+after; every kernel of a path must have launched there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line the device JSON object.  Without a card, or
@@ -133,6 +163,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1716,10 +1747,17 @@ SMALL_SERVE = [
 SERVE_TIMED = ("seconds", "qps", "time", "apply_s", "journal_bytes")
 
 
+def _read_report(path: Path) -> dict[str, dict]:
+    blocks = {}
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        blocks[rec.pop("block")] = rec
+    return blocks
+
+
 def _serve(argv: list[str]):
     """One in-process run of the port's server with a fresh metrics
     registry: ``(ServeRun, report blocks by tag)``."""
-    import tempfile
 
     from repro_torch.launch import serve_datalog as serve
     from repro_torch.obs import metrics
@@ -1729,10 +1767,7 @@ def _serve(argv: list[str]):
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "report.jsonl"
             served = serve.run([*argv, "--report-json", str(path)])
-            blocks = {}
-            for line in path.read_text().splitlines():
-                rec = json.loads(line)
-                blocks[rec.pop("block")] = rec
+            blocks = _read_report(path)
     finally:
         metrics.set_registry(prev)
     if served.rc:
@@ -1904,6 +1939,325 @@ def run_live(oracle_facts: int, profile: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# phases 13-15: the durable, concurrent and distributed server
+# --------------------------------------------------------------------- #
+#: the durable phase checkpoints every ``DURABLE_EVERY`` batches and is cut
+#: short before its final checkpoint, so one batch is left in the WAL
+DURABLE_EVERY = 3
+#: the restore run's stream: no batch, the queries after a warm start
+DURABLE_RESTORE_QUERIES = 10
+#: the mvcc phase: its clients, queries (1-2 batches) and checkpoint interval
+MVCC_CLIENTS, MVCC_QUERIES, MVCC_EVERY = 4, 100, 2
+#: the distributed phase's KB: the largest ``--scale`` whose ids stay
+#: below the engine's 2**15 limit (the generator's largest id is 120 *
+#: scale, 32,400 here)
+DIST_SERVE_SCALE = 270
+#: the small cross-device check of snapshots, at ``--scale 1``
+SMALL_DURABLE = ["--kb", "lubm", "--scale", "1", "--n-queries", "300", "--live",
+                 "--update-every", "100", "--update-size", "6", "--checkpoint-every", "2"]
+
+
+class _Crash(Exception):
+    """Raised in place of the final checkpoint: the server stops as a
+    crash would stop it, after its last batch was logged and applied."""
+
+    def __init__(self, inc):
+        super().__init__(f"crash before the checkpoint of epoch {inc.epoch}")
+        self.inc = inc
+
+
+def _live_argv(scale: int, n_queries: int) -> list[str]:
+    return ["--kb", "lubm", "--scale", str(scale), "--n-queries", str(n_queries), "--live",
+            "--update-every", str(LIVE_EVERY), "--update-size", str(LIVE_SIZE), "--live-verify"]
+
+
+def check_small_durable(tmp: Path) -> dict:
+    """The server's snapshot at ``--scale 1`` written from the card and
+    from the CPU: equal ``data.bin`` SHA-256, and each restores on the
+    other device to the same ``to_dict``."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.launch.serve_datalog import build_kb
+    from repro_torch.storage import CheckpointManager
+
+    runs, digests = {}, {}
+    for dev in ("cuda", "cpu"):
+        root = tmp / f"small-{dev}"
+        served, _ = _serve([*SMALL_DURABLE, "--checkpoint-dir", str(root), "--device", dev])
+        runs[dev] = {p: r.cpu() for p, r in served.inc.to_dict().items()}
+        digests[dev] = hashlib.sha256(
+            (Path(served.ckpt.latest()) / "data.bin").read_bytes()).hexdigest()
+    if digests["cuda"] != digests["cpu"]:
+        raise AssertionError(f"durable-small: data.bin differs by device {digests}")
+    program, _, _ = build_kb("lubm", 1)
+    for written, restored_on in (("cuda", "cpu"), ("cpu", "cuda")):
+        mgr = CheckpointManager(str(tmp / f"small-{written}"), label="lubm:scale1")
+        inc, _ = mgr.restore(program, device=restored_on)
+        got = {p: r.cpu() for p, r in inc.to_dict().items()}
+        if set(got) != set(runs[written]) or not all(
+                torch.equal(got[p], runs[written][p]) for p in got):
+            raise AssertionError(f"durable-small: a {written} snapshot restored on "
+                                 f"{restored_on} differs")
+    log(f"[durable-small] --scale 1 snapshot from the card and from the CPU: data.bin "
+        f"SHA-256 {digests['cuda']} in both; each restores on the other device to the "
+        f"same to_dict")
+    return {"data_sha256": digests["cuda"]}
+
+
+def run_durable(tmp: Path, oracle_facts: int) -> dict:
+    """Phase 13: the live server at ``--scale 10000`` with a checkpoint
+    every ``DURABLE_EVERY`` batches, stopped by a simulated crash in place
+    of its final checkpoint (snapshot at epoch 3, batch 4 in the WAL);
+    then the same server in process with ``--restore``: a warm start from
+    epoch 3 replaying one batch to epoch 4, equal to the crashed store,
+    ``[live-verify] OK``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_datalog as serve
+    from repro_torch.obs import metrics
+    from repro_torch.storage import CheckpointManager, snapshot_nbytes
+
+    out = check_small_durable(tmp)
+    root = tmp / "durable"
+    argv = [*_live_argv(SERVE_SCALE, LIVE_QUERIES), "--checkpoint-dir", str(root),
+            "--checkpoint-every", str(DURABLE_EVERY)]
+    real = CheckpointManager.checkpoint
+    walls: list[tuple[int, float]] = []
+
+    def checkpoint(self, inc):
+        if inc.epoch % DURABLE_EVERY:
+            raise _Crash(inc)
+        t0 = time.perf_counter()
+        manifest = real(self, inc)
+        walls.append((inc.epoch, time.perf_counter() - t0))
+        return manifest
+
+    prev = metrics.set_registry(metrics.MetricsRegistry())
+    CheckpointManager.checkpoint = checkpoint
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    report = tmp / "durable.jsonl"
+    t0 = time.perf_counter()
+    try:
+        serve.run([*argv, "--report-json", str(report)])
+        raise AssertionError("durable: the server reached its final checkpoint")
+    except _Crash as crash:
+        crashed = crash.inc
+    finally:
+        CheckpointManager.checkpoint = real
+        metrics.set_registry(prev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    cold = _read_report(report)
+    if cold["materialise"]["n_facts"] != oracle_facts:
+        raise AssertionError(f"durable: {cold['materialise']['n_facts']} facts loaded, the "
+                             f"flat oracle {oracle_facts}")
+    if [e for e, _ in walls] != [DURABLE_EVERY] or crashed.epoch != DURABLE_EVERY + 1:
+        raise AssertionError(f"durable: checkpoints {walls}, crashed at epoch {crashed.epoch}")
+    mgr = CheckpointManager(str(root), label=f"lubm:scale{SERVE_SCALE}")
+    snap = Path(mgr.latest())
+    if snap.name != f"snap-{DURABLE_EVERY:08d}" or len(mgr.wal.records()) != 1:
+        raise AssertionError(f"durable: latest {snap.name}, {len(mgr.wal.records())} WAL "
+                             "records")
+    out.update({
+        "wall_s": wall,
+        "load_s": cold["materialise"]["seconds"],
+        "checkpoint_s": walls[0][1],
+        "snapshot_disk_bytes": snapshot_nbytes(str(snap)),
+        "snapshot_data_bytes": (snap / "data.bin").stat().st_size,
+        "wal_bytes": mgr.wal.nbytes(),
+        "launches": launches,
+        "largest_launch": ops.largest_launches(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    })
+
+    # the restore run, its restore's host synchronisations counted
+    real_restore = CheckpointManager.restore
+
+    def restore(self, program, **kwargs):
+        result, out["restore_syncs"] = _count_syncs(
+            lambda: real_restore(self, program, **kwargs))
+        return result
+
+    CheckpointManager.restore = restore
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        served, blocks = _serve([*_live_argv(SERVE_SCALE, DURABLE_RESTORE_QUERIES),
+                                 "--checkpoint-dir", str(root), "--restore"])
+    finally:
+        CheckpointManager.restore = real_restore
+    torch.cuda.synchronize()
+    restore_wall = time.perf_counter() - t0
+    rst = blocks["restore"]
+    if (rst["snapshot_epoch"], rst["storage.wal_replayed"], rst["final_epoch"]) != (
+            DURABLE_EVERY, 1, DURABLE_EVERY + 1):
+        raise AssertionError(f"durable: restore {rst}")
+    if not blocks["live-verify"]["ok"]:
+        raise AssertionError("durable: live-verify failed after the restore")
+    want, got = crashed.to_dict(), served.inc.to_dict()
+    if set(want) != set(got) or not all(torch.equal(want[p], got[p]) for p in want):
+        raise AssertionError("durable: the restored store differs from the crashed one")
+    if served.inc.store.n_nodes() > crashed.store.n_nodes():
+        raise AssertionError("durable: the restored store holds more nodes than the crashed")
+    out.update({
+        "restore_wall_s": restore_wall,
+        "restore_s": rst["seconds"],
+        "restore_snapshot_s": rst["storage.restore_snapshot_s"],
+        "restore_replay_s": rst["storage.restore_replay_s"],
+        "restore_epochs": [rst["snapshot_epoch"], rst["final_epoch"]],
+        "wal_replayed": rst["storage.wal_replayed"],
+        "nodes_crashed": crashed.store.n_nodes(),
+        "nodes_restored": served.inc.store.n_nodes(),
+        "verified_facts": blocks["live-verify"]["facts"],
+        "restore_launches": ops.launch_counts(),
+        "restore_largest_launch": ops.largest_launches(),
+    })
+    log(f"[durable] {' '.join(argv)}: {out}")
+    log(f"[durable] [restore] warm start from epoch {DURABLE_EVERY}, 1 WAL batch replayed, "
+        f"epoch {DURABLE_EVERY + 1}, equal to the crashed store; [live-verify] OK; "
+        f"checkpoint {out['checkpoint_s']:.3f} s, snapshot {out['snapshot_disk_bytes']} B; "
+        f"restore {out['restore_snapshot_s']:.3f} s + replay {out['restore_replay_s']:.3f} s "
+        f"against the cold load + materialise {out['load_s']:.3f} s; restore syncs "
+        f"{out['restore_syncs']}")
+    del served, crashed
+    return out
+
+
+def run_mvcc(tmp: Path) -> dict:
+    """Phase 14: ``--mvcc --concurrency 4 --live`` at ``--scale 10000``,
+    warm-started from the durable phase's directory and checkpointing
+    every ``MVCC_EVERY`` batches: zero stale reads, the tier's epoch the
+    restored epoch plus the batches applied, ``[live-verify] OK``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    argv = [*_live_argv(SERVE_SCALE, MVCC_QUERIES), "--mvcc", "--concurrency",
+            str(MVCC_CLIENTS), "--checkpoint-dir", str(tmp / "durable"),
+            "--checkpoint-every", str(MVCC_EVERY), "--restore"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, blocks = _serve(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = served.tier.stats()
+    if "restore" not in blocks or served.recovery is None:
+        raise AssertionError("mvcc: no warm start")
+    if st["stale_reads"] or blocks["serving"]["stale_reads"]:
+        raise AssertionError(f"mvcc: {st['stale_reads']} stale reads")
+    if not blocks["live-verify"]["ok"]:
+        raise AssertionError("mvcc: live-verify failed")
+    if st["epoch"] != served.recovery.final_epoch + served.applied or served.applied < 1:
+        raise AssertionError(f"mvcc: tier epoch {st['epoch']} after {served.applied} batches "
+                             f"from epoch {served.recovery.final_epoch}")
+    _check_launched("mvcc", launches)
+    out = {
+        "wall_s": wall,
+        "restore_s": blocks["restore"]["seconds"],
+        "start_epoch": served.recovery.final_epoch,
+        "batches": served.applied,
+        "epoch": st["epoch"],
+        "queries": blocks["serve"]["queries"],
+        "qps": blocks["serve"]["qps"],
+        **_percentiles(served.latencies_s),
+        **{f"apply_{k}": v for k, v in _percentiles(served.apply_s).items()},
+        "apply_s": served.apply_s,
+        "stale_reads": st["stale_reads"],
+        "epochs_published": st["epochs_published"],
+        "epochs_retired": st["epochs_retired"],
+        "peak_pinned": served.tier.registry.max_pinned,
+        "micro_batches": st["batches"],
+        "mean_batch": st["mean_batch"],
+        "checkpoints": blocks["storage"]["storage.checkpoints"],
+        "verified_facts": blocks["live-verify"]["facts"],
+        "launches": launches,
+        "largest_launch": ops.largest_launches(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    log(f"[mvcc] {' '.join(argv)}: {out}")
+    log(f"[mvcc] warm start at epoch {out['start_epoch']}, {out['batches']} batches through "
+        f"the writer to epoch {out['epoch']}, 0 stale reads, [live-verify] OK")
+    del served
+    return out
+
+
+def run_serve_distributed() -> dict:
+    """Phase 15: ``--distributed`` at ``--scale 270``, static (``[dist-verify]
+    OK`` after the materialise) and ``--live`` (``[dist-verify] OK`` after
+    the batches, ``[live-verify] OK``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    out: dict = {}
+    for mode, extra in (("static", ["--n-queries", str(LIVE_EVERY)]),
+                        ("live", _live_argv(DIST_SERVE_SCALE, LIVE_QUERIES)[4:])):
+        argv = ["--kb", "lubm", "--scale", str(DIST_SERVE_SCALE), *extra, "--distributed"]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        served, blocks = _serve(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not blocks.get("dist-verify", {}).get("dist.verify_ok"):
+            raise AssertionError(f"distributed {mode}: no [dist-verify] OK")
+        launches = ops.launch_counts()
+        missing = [k for k in ("sorted_member", "join_bounds") if not launches[k]]
+        if missing:
+            raise AssertionError(f"distributed {mode}: never launched {missing}")
+        entry = {
+            "wall_s": wall,
+            "host_load_s": blocks["materialise"]["seconds"],
+            "dist_materialise_s": served.dist_materialise_s,
+            "dist_rounds": served.dist.rounds,
+            "n_facts": blocks["materialise"]["n_facts"],
+            "launches": launches,
+            "largest_launch": ops.largest_launches(),
+        }
+        if mode == "live":
+            if not blocks["live-verify"]["ok"] or len(served.dist_apply_s) < 4:
+                raise AssertionError(f"distributed live: {len(served.dist_apply_s)} batches, "
+                                     f"live-verify {blocks['live-verify']}")
+            entry.update({
+                "dist_apply_s": served.dist_apply_s,
+                **{f"dist_apply_{k}": v
+                   for k, v in _percentiles(served.dist_apply_s).items()},
+                "batches": served.applied,
+            })
+        out[mode] = entry
+        log(f"[serve-distributed] {' '.join(argv)}: {entry}")
+        log(f"[serve-distributed] {mode}: [dist-verify] OK")
+        del served
+    return out
+
+
+def larger_launches(base: dict[str, dict], runs: dict[str, dict]) -> dict[str, dict]:
+    """``runs`` cut to the kernels whose largest launch there moves more
+    elements than that kernel's largest launch in every ``base`` run."""
+
+    def size(shape: dict) -> int:
+        return sum(shape.values())
+
+    out = {}
+    for path, run in runs.items():
+        largest = {
+            name: shape
+            for name, shape in run["largest_launch"].items()
+            if shape and all(size(shape) > size(b["largest_launch"][name]) for b in base.values())
+        }
+        out[path] = {"largest_launch": largest}
+    return out
+
+
 def check_server_launches(dev, runs: dict[str, dict]) -> dict[str, list]:
     """The largest launch of ``sorted_member``, ``join_bounds`` and
     ``rle_expand`` in each server phase (``runs``: path -> its numbers):
@@ -1923,7 +2277,7 @@ def check_server_launches(dev, runs: dict[str, dict]) -> dict[str, list]:
     for name in ("sorted_member", "join_bounds", "rle_expand"):
         kernel, plain = getattr(kernels, name), getattr(ref, name)
         for path, run in runs.items():
-            shape = run["largest_launch"][name]
+            shape = run["largest_launch"].get(name)
             if not shape:
                 continue
             rng = np.random.default_rng([ops.KERNELS.index(name), 8, 2])
@@ -2187,9 +2541,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     live = run_live(serve["n_facts"], args.profile)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        durable = run_durable(Path(tmp), serve["n_facts"])
+        torch.cuda.empty_cache()
+        mvcc = run_mvcc(Path(tmp))
+    torch.cuda.empty_cache()
+    serve_dist = run_serve_distributed()
+    torch.cuda.empty_cache()
 
-    for name, entries in check_server_launches(
-            torch.device("cuda"), {"serve": serve, "live": live}).items():
+    # the new phases' launches are timed where they are larger than phases
+    # 11 and 12's
+    server_runs = {"serve": serve, "live": live}
+    server_runs.update(larger_launches(server_runs, {
+        "durable": durable, "restore": {"largest_launch": durable["restore_largest_launch"]},
+        "mvcc": mvcc, "serve-distributed": serve_dist["live"]}))
+    for name, entries in check_server_launches(torch.device("cuda"), server_runs).items():
         kernel_numbers[name]["timings"] += entries
         kernel_numbers[name]["max_abs_err"] = max(
             kernel_numbers[name]["max_abs_err"], *(e["max_abs_err"] for e in entries))
@@ -2207,6 +2573,11 @@ def main() -> int:
         "closure": closure["launches"],
         "serve": serve["launches"],
         "live": live["launches"],
+        "durable": durable["launches"],
+        "restore": durable["restore_launches"],
+        "mvcc": mvcc["launches"],
+        "serve_distributed_static": serve_dist["static"]["launches"],
+        "serve_distributed_live": serve_dist["live"]["launches"],
     }
     kernels_line = []
     for name in ops.KERNELS:

@@ -282,6 +282,27 @@ class ColumnStore:
             int(count),
         )
 
+    def add_nodes(self, leaves, concats, next_id: int) -> None:
+        """Insert nodes at ids reserved by the caller (a snapshot load):
+        ``leaves`` holds ``(cid, run_values, run_counts, length)``, each
+        payload a disjoint slice of one device block (owned, as in
+        :meth:`new_leaf_rle`), ``concats`` holds ``(cid, children)`` in
+        ascending ids, each child inserted before its parents.  The id
+        counter moves to ``next_id``."""
+        nodes = self._nodes
+        runs = 0
+        for cid, rv, rc, length in leaves:
+            nodes[cid] = _Leaf(rv, rc, length, True)
+            runs += rv.shape[0]
+        self._nbytes_owned += 16 * runs
+        for cid, children in concats:
+            node = _Concat(list(children), sum(nodes[c].length for c in children))
+            nodes[cid] = node
+            self._nbytes_owned += 8 * len(children)
+            for c in children:
+                self._parents.setdefault(c, set()).add(cid)
+        self._next_id = next_id
+
     def new_concat(self, children: list[int]) -> int:
         if len(children) == 1:
             return children[0]

@@ -22,6 +22,7 @@ __all__ = [
     "resolve_device",
     "segment_counts",
     "sorted_member",
+    "synchronize",
     "unique_rows",
 ]
 
@@ -38,6 +39,12 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the host"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work, so a host wall covers it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def sorted_member(a: torch.Tensor, b_sorted: torch.Tensor) -> torch.Tensor:

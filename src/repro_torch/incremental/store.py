@@ -29,8 +29,8 @@ Every batch appends to :attr:`journal` (bounded; entries hold Python
 numbers, so :meth:`journal_bytes` counts what the JAX package's store
 counts) and bumps :attr:`epoch`, which the serving layer stamps its
 caches with.  :meth:`maybe_compact` runs GC/compaction epochs
-(:mod:`repro_torch.storage.compact`).  The write-ahead log
-(``ROADMAP.md`` queue 1 item 8) and provenance (item 9) are not ported.
+(:mod:`repro_torch.storage.compact`).  With a write-ahead log attached
+(:meth:`attach_wal`) every batch is logged before the store mutates.
 
 This module also holds the update contract every maintenance engine
 shares (:func:`normalise_batch`, :func:`effective_updates`).
@@ -202,6 +202,9 @@ class IncrementalStore:
             for atom in (rule.head, *rule.body):
                 self.arities.setdefault(atom.predicate, atom.arity)
         self.stats_view = PhaseStats(self.facts, self.arities)
+        #: write-ahead log every ``apply`` batch goes to before the store
+        #: mutates (see :meth:`attach_wal`)
+        self.wal = None
         #: publish-after-apply callbacks ``cb(store, stats)``, invoked at
         #: the end of every ``apply`` (after the epoch bump)
         self.publish_hooks: list = []
@@ -337,6 +340,10 @@ class IncrementalStore:
         st = IncrementalStats()
         adds = normalise_batch(additions, self.device)
         dels = normalise_batch(deletions, self.device)
+        if self.wal is not None:
+            # write-ahead: the record is durable before any mutation, so a
+            # crash mid-apply recovers to the post-batch state
+            self.wal.append(self.epoch + 1, adds, dels)
 
         with span(
             "inc.apply",
@@ -620,10 +627,10 @@ class IncrementalStore:
     # durability hooks and the journal
     # ------------------------------------------------------------------ #
     def attach_wal(self, wal) -> None:
-        raise NotImplementedError(
-            "the write-ahead log is not ported yet; storage is a later slice "
-            "(ROADMAP.md queue 1 item 8)"
-        )
+        """Log every later ``apply`` batch to ``wal`` before the store
+        mutates (recovery = snapshot + replay).  Attach only after any
+        replay, or the replay would log itself again."""
+        self.wal = wal
 
     def _journal_append(self, entry: dict) -> None:
         """Bounded append with a running byte count."""

@@ -23,19 +23,37 @@ fraction of mu-nodes.  The report adds apply-latency percentiles, stale
 evictions and, with ``--live-verify``, a final check against
 ``flat_seminaive`` of the ending explicit set, on the store's device.
 
+``--checkpoint-dir`` makes the store durable: update batches are
+write-ahead logged, a snapshot is checkpointed every
+``--checkpoint-every`` batches (and once more at the end), and
+``--restore`` warm-starts from the latest snapshot + WAL replay instead of
+re-materialising.  Without ``--live`` the directory holds one frozen
+snapshot of the static materialisation, and ``--restore`` serves from it.
+Snapshots and WAL files are the JAX package's format, byte for byte.
+
+``--mvcc`` serves through the epoch-based :class:`~repro_torch.serving.ServingTier`:
+``--concurrency`` closed-loop client threads, micro-batched admission over
+pinned epochs, update batches through the tier's single writer thread.
+``--distributed`` shadows the KB on the :class:`~repro_torch.core.distributed.DistributedEngine`
+(one shard, on the server's device): it is materialised beside the host
+store, checked against it (``[dist-verify]``), and under ``--live`` every
+update batch also goes through its ``apply``.  ``--mvcc`` and
+``--distributed`` exclude each other, as in the JAX package.
+
 Everything runs on ``--device`` (default ``cuda``; without a card the
 server raises, it never falls back).  On a card the hand kernels run, on
 the CPU their plain versions; the ``[kernels]`` block reports the kernel
 facade's registry meter and the launch meter's per-kernel counts.  The
-flags for durable storage, the MVCC tier, the sharded engine and
-provenance are not ported yet and exit with the ``ROADMAP.md`` item that
-will port them.
+provenance flags are not ported yet and exit with the ``ROADMAP.md`` item
+that will port them.  A failure in a server thread reaches the caller and
+a non-zero exit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -45,7 +63,9 @@ import torch
 
 from ..core import CMatEngine, Dictionary, Program, flat_seminaive
 from ..core.generators import chain, lubm_like, paper_example, star
-from ..core.util import resolve_device
+from ..core.distributed import DistributedEngine
+from ..core.frozen import FrozenFacts
+from ..core.util import resolve_device, synchronize
 from ..incremental import IncrementalStore
 from ..kernels import ops
 from ..obs import (
@@ -53,12 +73,15 @@ from ..obs import (
     get_tracer,
     publish_predicate_effectiveness,
     publish_query_cache,
+    publish_serving,
     sample_memory,
     span,
     write_chrome_trace,
     write_metrics,
 )
 from ..query import QueryEngine
+from ..serving import ServingTier
+from ..storage import CheckpointManager, RecoveryStats, load_frozen, write_snapshot
 
 __all__ = [
     "ReportSink",
@@ -200,19 +223,13 @@ def make_update_batches(dataset, n_updates: int, size: int, seed: int):
     return batches
 
 
-def _synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work, so a host wall covers it."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+#: how long an MVCC client waits for an answer: a request can queue behind
+#: a micro-batch and a writer's apply and checkpoint, which take tens of
+#: seconds each at ``--scale 10000`` (the tier's own default is 60 s)
+CLIENT_TIMEOUT_S = 600.0
 
-
-#: unported flags: (flag, ROADMAP item, what ports it)
+#: flags not ported yet: (attribute, flag, ROADMAP item, what ports it)
 _UNPORTED = (
-    ("checkpoint_dir", "--checkpoint-dir", 8, "storage"),
-    ("checkpoint_every", "--checkpoint-every", 8, "storage"),
-    ("restore", "--restore", 8, "storage"),
-    ("mvcc", "--mvcc", 10, "serving"),
-    ("distributed", "--distributed", 10, "serving"),
     ("provenance", "--provenance", 9, "observability"),
     ("explain", "--explain", 9, "observability"),
     ("explain_sample", "--explain-sample", 9, "observability"),
@@ -253,13 +270,26 @@ def _parser() -> argparse.ArgumentParser:
                          "(periodic in --live mode, final always)")
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="append one JSON object per report block here")
+    ap.add_argument("--mvcc", action="store_true",
+                    help="serve through the epoch-based MVCC tier "
+                         "(repro_torch.serving): concurrent client threads, "
+                         "micro-batched admission, single writer thread")
+    ap.add_argument("--concurrency", type=int, default=1, metavar="N",
+                    help="closed-loop client threads in --mvcc mode")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shadow the KB on the distributed engine (one shard on "
+                         "--device); with --live, updates also go through its "
+                         "apply and the final state is checked against the host "
+                         "store")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="durable storage root: WAL + periodic snapshots")
+    ap.add_argument("--checkpoint-every", type=int, default=5,
+                    help="checkpoint every N applied update batches (--live; a "
+                         "final checkpoint always runs)")
+    ap.add_argument("--restore", action="store_true",
+                    help="warm-start from the latest snapshot (+ WAL replay in "
+                         "--live mode) instead of materialising")
     # not ported yet: each exits naming its ROADMAP item
-    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR")
-    ap.add_argument("--checkpoint-every", type=int, default=None)
-    ap.add_argument("--restore", action="store_true")
-    ap.add_argument("--mvcc", action="store_true")
-    ap.add_argument("--concurrency", type=int, default=1, metavar="N")
-    ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--provenance", action="store_true")
     ap.add_argument("--explain", action="append", default=[], metavar="FACT")
     ap.add_argument("--explain-sample", type=int, default=0, metavar="N")
@@ -270,22 +300,372 @@ def _parser() -> argparse.ArgumentParser:
 @dataclass
 class ServeRun:
     """What one run served: its exit code, the KB, the store (``source``;
-    ``inc`` under ``--live``), the query engine, the stream, the update
-    batches and how many were applied, and the measured walls.  A caller
-    can drive the same state further (one more batch, one more pass)."""
+    ``inc`` under ``--live``, ``--mvcc`` or a live restore), the query
+    engine (``tier`` under ``--mvcc``), the stream, the update batches and
+    how many were applied, the measured walls, the checkpoint manager and
+    the recovery it did, and the distributed engine.  A caller can drive
+    the same state further (one more batch, one more pass)."""
 
     rc: int
     program: Program
     dataset: dict
     dictionary: Dictionary
-    source: CMatEngine | IncrementalStore
+    source: CMatEngine | IncrementalStore | FrozenFacts
     inc: IncrementalStore | None = None
     qe: QueryEngine | None = None
+    tier: ServingTier | None = None
     stream: list[str] = field(default_factory=list)
     batches: list = field(default_factory=list)
     applied: int = 0
     latencies_s: np.ndarray | None = None
     apply_s: list[float] = field(default_factory=list)
+    ckpt: CheckpointManager | None = None
+    recovery: RecoveryStats | None = None
+    dist: DistributedEngine | None = None
+    dist_materialise_s: float = 0.0
+    dist_apply_s: list[float] = field(default_factory=list)
+
+
+def _live_verify(report, program, inc) -> bool:
+    """``[live-verify]``: the store against ``flat_seminaive`` of its
+    explicit set, on the store's device."""
+    want = {
+        p: r
+        for p, r in flat_seminaive(program, inc.explicit, device=inc.device).items()
+        if r.shape[0]
+    }
+    got = inc.to_dict()
+    ok = set(want) == set(got) and all(torch.equal(want[p], got[p]) for p in want)
+    n_facts = sum(int(r.shape[0]) for r in want.values())
+    report.emit(
+        "live-verify",
+        f"{'OK' if ok else 'MISMATCH'} ({n_facts} facts)",
+        {"ok": ok, "facts": n_facts},
+    )
+    return ok
+
+
+def _emit_storage(report, args, ckpt, tail: str = ")") -> None:
+    reg = get_registry()
+    reg.gauge("storage.disk_bytes").set(ckpt.disk_nbytes())
+    reg.gauge("storage.wal_bytes").set(ckpt.wal.nbytes())
+    st_snap = reg.snapshot("storage.")
+    report.emit(
+        "storage",
+        f"{int(st_snap.get('storage.checkpoints', 0))} checkpoints "
+        f"under {args.checkpoint_dir} "
+        f"({st_snap['storage.disk_bytes'] / 1024:.1f}KiB on disk{tail}",
+        st_snap,
+    )
+
+
+def _dist_verify(report, dist, host, what: str) -> bool:
+    """``[dist-verify]``: the sharded state against the host's."""
+    reg = get_registry()
+    try:
+        dist.check_integrity(host)
+    except AssertionError as e:
+        reg.counter("dist.verify_mismatch").inc()
+        report.emit("dist-verify", f"MISMATCH: {e}",
+                    {**reg.snapshot("dist.verify"), "error": str(e)})
+        return False
+    reg.counter("dist.verify_ok").inc()
+    report.emit("dist-verify", f"OK ({what})", reg.snapshot("dist.verify"))
+    return True
+
+
+def _serve_mvcc(args, report, served, flush_telemetry, update_at) -> int:
+    """Concurrent MVCC serving loop: ``--concurrency`` closed-loop client
+    threads answer through the :class:`ServingTier` (micro-batched
+    admission over pinned epochs) while update batches flow through the
+    tier's writer thread every ``update_at`` served queries.  An error in
+    a client thread is raised here once the threads are joined."""
+    inc, ckpt, stream, batches = served.inc, served.ckpt, served.stream, served.batches
+    tier = served.tier = ServingTier(
+        inc,
+        served.dictionary,
+        result_cache_size=0 if args.no_result_cache else 1024,
+        checkpoint=ckpt if args.live else None,
+        checkpoint_every=args.checkpoint_every if args.live else 0,
+        compact_threshold=args.compact_threshold if args.live else 0.0,
+    )
+    n_clients = max(args.concurrency, 1)
+    lat_lock = threading.Lock()
+    latencies: list[float] = []
+    totals = {"answers": 0, "stale": 0, "served": 0}
+    errors: list[BaseException] = []
+    apply_lat: list[float] = []
+    try:
+        # warmup off the measured path: snapshots, plans, caches
+        with span("serve.warmup"):
+            for text in dict.fromkeys(stream[: min(50, len(stream))]):
+                tier.answer(text)
+        tier.reset_counters()
+        tier.start()
+
+        shards = [stream[i::n_clients] for i in range(n_clients)]
+
+        def client(shard):
+            local_lat = []
+            answers = stale = 0
+            try:
+                for text in shard:
+                    t0 = time.perf_counter()
+                    resp = tier.answer(text, timeout=CLIENT_TIMEOUT_S)
+                    local_lat.append(time.perf_counter() - t0)
+                    answers += resp.n_answers
+                    stale += int(resp.stale)
+                    with lat_lock:
+                        totals["served"] += 1
+            except BaseException as e:  # noqa: BLE001 — raised by the main thread
+                with lat_lock:
+                    errors.append(e)
+            with lat_lock:
+                latencies.extend(local_lat)
+                totals["answers"] += answers
+                totals["stale"] += stale
+
+        threads = [
+            threading.Thread(target=client, args=(s,), daemon=True) for s in shards if s
+        ]
+        t_serve0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        # the main thread feeds the writer: one update batch per
+        # `update_at` served queries, applied through the writer thread
+        # and published as a fresh epoch
+        next_batch = 0
+        while any(th.is_alive() for th in threads):
+            if (
+                args.live
+                and next_batch < len(batches)
+                and totals["served"] >= (next_batch + 1) * update_at
+            ):
+                deletions, additions = batches[next_batch]
+                next_batch += 1
+                t0 = time.perf_counter()
+                tier.apply_sync(additions=additions, deletions=deletions)
+                apply_lat.append(time.perf_counter() - t0)
+                sample_memory(phase="serve_batch", rss=False)
+                flush_telemetry()
+            else:
+                time.sleep(0.001)
+        for th in threads:
+            th.join()
+        t_serve = time.perf_counter() - t_serve0
+    finally:
+        tier.close()
+    if errors:
+        raise errors[0]
+    served.applied, served.apply_s = next_batch, apply_lat
+    served.latencies_s = np.asarray(latencies)
+    if args.live and ckpt is not None:
+        ckpt.checkpoint(inc)  # final durable state via the LATEST pointer
+
+    reg = get_registry()
+    lat_ms = (np.asarray(latencies) if latencies else np.zeros(1)) * 1e3
+    lat_hist = reg.histogram("serve.query_s")
+    for v in latencies:
+        lat_hist.observe(float(v))
+    publish_serving(tier)
+    st = tier.stats()
+    qps = len(latencies) / max(t_serve, 1e-9)
+    report.emit(
+        "serve",
+        f"{len(latencies)} queries in {t_serve:.2f}s ({qps:.0f} q/s), "
+        f"{totals['answers']} answers total",
+        {"queries": len(latencies), "seconds": t_serve, "qps": qps,
+         "answers": totals["answers"]},
+    )
+    report.emit(
+        "latency",
+        f"p50={np.percentile(lat_ms, 50):.3f}ms "
+        f"p90={np.percentile(lat_ms, 90):.3f}ms "
+        f"p99={np.percentile(lat_ms, 99):.3f}ms "
+        f"max={lat_ms.max():.3f}ms",
+        reg.snapshot("serve.query_s"),
+    )
+    report.emit(
+        "serving",
+        f"mvcc concurrency={n_clients}: {qps:.0f} q/s, "
+        f"p99={np.percentile(lat_ms, 99):.3f}ms; "
+        f"{st['batches']} micro-batches "
+        f"(mean {st['mean_batch']:.1f}, max {st['max_batch']}, "
+        f"{st['dedup_hits']} dedup / {st['grouped_queries']} grouped / "
+        f"{st['cache_hits']} cached), "
+        f"epochs: {st['epochs_published']} published, "
+        f"{st['epochs_retired']} retired, {st['epochs_live']} live, "
+        f"lag<={st['epoch_lag_max']}; {st['stale_reads']} stale reads, "
+        f"{st['compactions']} compactions "
+        f"({st['compactions_deferred']} deferred)",
+        {
+            "concurrency": n_clients,
+            "qps": qps,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            **st,
+        },
+    )
+    if st["stale_reads"]:
+        report.emit(
+            "serving-verify",
+            f"FAILED: {st['stale_reads']} stale reads (must be 0)",
+            {"stale_reads": st["stale_reads"]},
+        )
+        return 1
+    report.emit("store", f"{inc.store.n_nodes()} mu-nodes", {"mu_nodes": inc.store.n_nodes()})
+    if args.live:
+        ap_ms = (np.asarray(apply_lat) if apply_lat else np.zeros(1)) * 1e3
+        inc_snap = reg.snapshot("inc.")
+        report.emit(
+            "live",
+            f"{len(apply_lat)} update batches through the writer thread "
+            f"(epoch {inc.epoch}), apply p50={np.percentile(ap_ms, 50):.2f}ms "
+            f"p99={np.percentile(ap_ms, 99):.2f}ms; "
+            f"{int(inc_snap.get('inc.n_deleted', 0))} deleted / "
+            f"{int(inc_snap.get('inc.n_inserted', 0))} inserted facts",
+            {**inc_snap, "apply_batches": len(apply_lat)},
+        )
+        if ckpt is not None:
+            _emit_storage(report, args, ckpt)
+        if args.live_verify and not _live_verify(report, inc.program, inc):
+            return 1
+    return 0
+
+
+def _start(args, report, program, dataset, device, ckpt, kb_label):
+    """Load and materialise, or restore: ``(source, inc, stats,
+    recovery)``, reported as ``[materialise]`` + ``[fixpoint]`` or
+    ``[restore]``; the wall ends in a synchronisation of the device."""
+    static_snap = os.path.join(args.checkpoint_dir, "frozen") if args.checkpoint_dir else None
+    t0 = time.perf_counter()
+    inc = recovery = stats = None
+    if args.live or args.mvcc:
+        # --mvcc always serves from an IncrementalStore: the tier publishes
+        # epochs by freezing it (a static KB just never applies)
+        if ckpt is not None and args.restore and ckpt.has_snapshot():
+            inc, recovery = ckpt.restore(program, device=device)
+        else:
+            inc = IncrementalStore(program, device=device)
+            stats = inc.load(dataset)
+            if ckpt is not None:
+                # a cold start owns the directory: a previous run's
+                # snapshots and WAL must not interleave with fresh epochs
+                ckpt.reset()
+                inc.attach_wal(ckpt.wal)
+        source = inc
+    elif (
+        args.restore
+        and static_snap is not None
+        and os.path.exists(os.path.join(static_snap, "manifest.json"))
+    ):
+        source = load_frozen(static_snap, expected_label=kb_label, device=device)
+    else:
+        eng = CMatEngine(program, dedup_index=True, device=device)
+        eng.load(dataset)
+        stats = eng.materialise()
+        source = eng
+        if static_snap is not None:
+            frozen = eng.facts.freeze()
+            rows = {p: frozen.snapshot(p) for p in frozen.predicates()}
+            write_snapshot(static_snap, eng.facts, kind="frozen", label=kb_label, rows=rows)
+    synchronize(device)
+    t_mat = time.perf_counter() - t0
+    if stats is not None:
+        report.emit(
+            "materialise",
+            f"{stats.rounds} rounds over {stats.n_strata} strata, "
+            f"{stats.n_facts} facts in {stats.n_meta_facts} meta-facts, "
+            f"{t_mat:.2f}s",
+            {"rounds": stats.rounds, "n_strata": stats.n_strata,
+             "n_facts": stats.n_facts, "n_meta_facts": stats.n_meta_facts,
+             "seconds": t_mat},
+        )
+        report.emit(
+            "fixpoint",
+            f"{stats.n_rule_applications} rule applications, "
+            f"{stats.rule_applications_skipped} skipped without a probe; "
+            f"plans: {stats.plan_cache.get('plans', 0)} compiled, "
+            f"{stats.plan_cache.get('plan_hits', 0)} hits, "
+            f"{stats.plan_cache.get('plan_replans', 0)} replans",
+            {"n_rule_applications": stats.n_rule_applications,
+             "rule_applications_skipped": stats.rule_applications_skipped,
+             **{f"plan_cache.{k}": v for k, v in stats.plan_cache.items()}},
+        )
+    elif recovery is not None:
+        # rendered from the registry scope the restore published into
+        snap = get_registry().snapshot("storage.")
+        report.emit(
+            "restore",
+            f"warm start from {recovery.snapshot}: snapshot "
+            f"{snap['storage.restore_snapshot_s']:.3f}s + "
+            f"{int(snap['storage.wal_replayed'])} WAL "
+            f"batches {snap['storage.restore_replay_s']:.3f}s (epoch "
+            f"{recovery.snapshot_epoch} -> {recovery.final_epoch}), "
+            f"{inc.facts.n_facts()} facts in "
+            f"{inc.facts.n_meta_facts()} meta-facts; total {t_mat:.3f}s",
+            {**snap, "snapshot": recovery.snapshot,
+             "snapshot_epoch": recovery.snapshot_epoch,
+             "final_epoch": recovery.final_epoch, "seconds": t_mat},
+        )
+    else:
+        report.emit(
+            "restore",
+            f"frozen snapshot served from {static_snap}, {t_mat:.3f}s",
+            {"snapshot": static_snap, "seconds": t_mat},
+        )
+    # high-water mark of the load/materialise/restore phase; the
+    # per-predicate compression gauges start from the fresh store
+    sample_memory(phase="restore" if stats is None else "materialise")
+    publish_predicate_effectiveness(inc.facts if inc is not None else source.facts)
+    return source, inc, recovery
+
+
+def _start_distributed(report, served, device) -> bool:
+    """``--distributed``: the KB on one shard on ``device``, materialised
+    from the host store's explicit set (the restored one after a warm
+    start) with buffers sized from the host materialisation; a static run
+    is checked against the host here.  False when that check failed."""
+    program, inc, source = served.program, served.inc, served.source
+    dprog = DistributedEngine.supported_program(program)
+    mat_rows = (
+        inc.to_dict() if inc is not None
+        else source.materialisation() if hasattr(source, "materialisation")
+        else None
+    )
+    # 2x headroom over the biggest predicate: every device op scales with
+    # capacity, not live rows
+    cap = 1 << 14
+    if mat_rows:
+        biggest = max((int(r.shape[0]) for r in mat_rows.values()), default=0)
+        cap = max(1 << 10, 1 << int(np.ceil(np.log2(max(2 * biggest, 2)))))
+    dist = served.dist = DistributedEngine(dprog, device=device, capacity=cap)
+    t0 = time.perf_counter()
+    dist.materialise(inc.explicit if inc is not None else served.dataset)
+    synchronize(device)
+    served.dist_materialise_s = time.perf_counter() - t0
+    ds = dist.stats
+    report.emit(
+        "distributed",
+        f"{dist.n_shards} shard(s), {dist.rounds} "
+        f"rounds over {ds.n_strata} strata in {served.dist_materialise_s:.2f}s; "
+        f"{ds.n_rule_applications} rule applications "
+        f"({ds.rule_applications_skipped} skipped), "
+        f"{ds.rows_joined} rows joined, {ds.exchanges} exchanges "
+        f"({ds.exchanges_skipped} elided by planner keys, "
+        f"{ds.exchange_regrows} regrows)",
+        get_registry().snapshot("dist."),
+    )
+    if len(dprog) != len(program):
+        report.emit(
+            "distributed",
+            f"{len(program) - len(dprog)} rule(s) outside the distributed "
+            f"fragment — differential checks disabled",
+            {"unsupported_rules": len(program) - len(dprog)},
+        )
+    elif inc is None and mat_rows is not None:
+        return _dist_verify(report, dist, mat_rows, "sharded materialisation == host")
+    return True
 
 
 def run(argv=None) -> ServeRun:
@@ -295,9 +675,8 @@ def run(argv=None) -> ServeRun:
     for attr, flag, item, area in _UNPORTED:
         if getattr(args, attr):
             ap.error(f"{flag} is not ported yet ({area}: ROADMAP.md queue 1 item {item})")
-    if args.concurrency > 1:
-        ap.error("--concurrency above 1 is not ported yet (serving: ROADMAP.md "
-                 "queue 1 item 10)")
+    if args.mvcc and args.distributed:
+        ap.error("--mvcc and --distributed are mutually exclusive")
     device = resolve_device(args.device)
 
     if args.trace_out:
@@ -318,61 +697,37 @@ def run(argv=None) -> ServeRun:
         {"explicit_facts": n_explicit, "rules": len(program), "scale": args.scale},
     )
 
-    t0 = time.perf_counter()
-    inc = None
-    if args.live:
-        inc = IncrementalStore(program, device=device)
-        stats = inc.load(dataset)
-        source = inc
-    else:
-        eng = CMatEngine(program, dedup_index=True, device=device)
-        eng.load(dataset)
-        stats = eng.materialise()
-        source = eng
-    _synchronize(device)
-    t_mat = time.perf_counter() - t0
-    report.emit(
-        "materialise",
-        f"{stats.rounds} rounds over {stats.n_strata} strata, "
-        f"{stats.n_facts} facts in {stats.n_meta_facts} meta-facts, "
-        f"{t_mat:.2f}s",
-        {"rounds": stats.rounds, "n_strata": stats.n_strata,
-         "n_facts": stats.n_facts, "n_meta_facts": stats.n_meta_facts,
-         "seconds": t_mat},
-    )
-    report.emit(
-        "fixpoint",
-        f"{stats.n_rule_applications} rule applications, "
-        f"{stats.rule_applications_skipped} skipped without a probe; "
-        f"plans: {stats.plan_cache.get('plans', 0)} compiled, "
-        f"{stats.plan_cache.get('plan_hits', 0)} hits, "
-        f"{stats.plan_cache.get('plan_replans', 0)} replans",
-        {"n_rule_applications": stats.n_rule_applications,
-         "rule_applications_skipped": stats.rule_applications_skipped,
-         **{f"plan_cache.{k}": v for k, v in stats.plan_cache.items()}},
-    )
+    kb_label = f"{args.kb}:scale{args.scale}"
+    ckpt = CheckpointManager(args.checkpoint_dir, label=kb_label) if args.checkpoint_dir else None
+    source, inc, recovery = _start(args, report, program, dataset, device, ckpt, kb_label)
+    served = ServeRun(0, program, dataset, dictionary, source, inc, ckpt=ckpt,
+                      recovery=recovery)
+    if args.distributed and not _start_distributed(report, served, device):
+        served.rc = 1
+        return served
 
-    # high-water mark of the load/materialise phase; the per-predicate
-    # compression gauges start from the fresh store
-    sample_memory(phase="materialise")
-    publish_predicate_effectiveness(source.facts)
-
-    stream = make_stream(args.kb, args.scale, args.n_queries, args.zipf, args.seed)
-    served = ServeRun(0, program, dataset, dictionary, source, inc, stream=stream)
+    stream = served.stream = make_stream(
+        args.kb, args.scale, args.n_queries, args.zipf, args.seed)
     if not stream:
         print("[serve] empty query stream (--n-queries 0); nothing to do")
         return served
 
     update_at = max(args.update_every, 1)
-    batches = (
+    served.batches = batches = (
         make_update_batches(
             dataset, len(stream) // update_at + 1, args.update_size, args.seed
         )
         if args.live
         else []
     )
-    served.batches = batches
 
+    if args.mvcc:
+        served.rc = _serve_mvcc(args, report, served, flush_telemetry, update_at)
+        if not served.rc:
+            _emit_tail(args, report, flush_telemetry)
+        return served
+
+    dist = served.dist
     qe = served.qe = QueryEngine(
         source, dictionary, result_cache_size=0 if args.no_result_cache else 1024
     )
@@ -387,7 +742,7 @@ def run(argv=None) -> ServeRun:
     apply_lat: list[float] = []
     n_answers = 0
     next_batch = 0
-    _synchronize(device)
+    synchronize(device)
     t_serve0 = time.perf_counter()
     for i, text in enumerate(stream):
         if args.live and i and i % update_at == 0 and next_batch < len(batches):
@@ -398,18 +753,32 @@ def run(argv=None) -> ServeRun:
                 inc.apply(additions=additions, deletions=deletions)
                 inc.maybe_compact(args.compact_threshold)
                 qe.bump_epoch(inc)
-                _synchronize(device)
+                synchronize(device)
                 apply_lat.append(time.perf_counter() - t0)
+                if dist is not None:
+                    # the same batch through the distributed engine
+                    t0 = time.perf_counter()
+                    dist.apply(additions=additions, deletions=deletions)
+                    synchronize(device)
+                    served.dist_apply_s.append(time.perf_counter() - t0)
+                if (
+                    ckpt is not None
+                    and args.checkpoint_every > 0
+                    and next_batch % args.checkpoint_every == 0
+                ):
+                    ckpt.checkpoint(inc)
                 sample_memory(phase="serve_batch", rss=False)
             # live telemetry: the files track the loop batch by batch
             flush_telemetry()
         t0 = time.perf_counter()
         res = qe.answer(text)
-        _synchronize(device)
+        synchronize(device)
         latencies[i] = time.perf_counter() - t0
         n_answers += res.n_answers
     t_serve = time.perf_counter() - t_serve0
     served.applied, served.latencies_s, served.apply_s = next_batch, latencies, apply_lat
+    if args.live and ckpt is not None:
+        ckpt.checkpoint(inc)  # final durable state for the next restore
 
     lat_ms = latencies * 1e3
     # measured-window counters only (the warmup answered queries too)
@@ -487,25 +856,31 @@ def run(argv=None) -> ServeRun:
             f"{usage.total_bytes / 1024:.1f}KiB resident); {compact_note}",
             gc_snap,
         )
-        if args.live_verify:
-            want = {
-                p: r
-                for p, r in flat_seminaive(program, inc.explicit, device=inc.device).items()
-                if r.shape[0]
-            }
-            got = inc.to_dict()
-            ok = set(want) == set(got) and all(
-                torch.equal(want[p], got[p]) for p in want
+        if ckpt is not None:
+            _emit_storage(
+                report, args, ckpt,
+                f", WAL {ckpt.wal.nbytes()}B), journal "
+                f"{int(inc_snap.get('inc.journal_bytes', 0))}B resident",
             )
-            n_facts = sum(int(r.shape[0]) for r in want.values())
+        if dist is not None and served.dist_apply_s:
+            dl_ms = np.asarray(served.dist_apply_s) * 1e3
+            ds = dist.stats
             report.emit(
-                "live-verify",
-                f"{'OK' if ok else 'MISMATCH'} ({n_facts} facts)",
-                {"ok": ok, "facts": n_facts},
+                "distributed",
+                f"{len(served.dist_apply_s)} update batches through the "
+                f"exchange, apply p50={np.percentile(dl_ms, 50):.2f}ms "
+                f"p99={np.percentile(dl_ms, 99):.2f}ms "
+                f"(last batch: {ds.n_overdeleted} overdeleted, "
+                f"{ds.n_rederived} rederived, {ds.n_inserted} inserted)",
+                reg.snapshot("dist."),
             )
-            if not ok:
+            if len(dist.program) == len(program) and not _dist_verify(
+                    report, dist, inc, "sharded state == host store"):
                 served.rc = 1
                 return served
+        if args.live_verify and not _live_verify(report, program, inc):
+            served.rc = 1
+            return served
     _emit_tail(args, report, flush_telemetry)
     return served
 

@@ -4,8 +4,8 @@
 * :func:`get_registry` — named counters/gauges/histograms;
 * :func:`register_reporter` — weak byte reporters (:mod:`.memory`);
 * :func:`publish_materialisation`, :func:`publish_distributed`,
-  :func:`publish_incremental`, :func:`publish_query_cache` — stats ->
-  registry;
+  :func:`publish_incremental`, :func:`publish_query_cache`,
+  :func:`publish_serving` — stats -> registry;
 * :func:`sample_memory`, :func:`publish_predicate_effectiveness` — the
   ``mem.*`` roll-up;
 * :func:`write_chrome_trace`, :func:`write_metrics` — exporters.
@@ -16,6 +16,7 @@ from .adapters import (
     publish_incremental,
     publish_materialisation,
     publish_query_cache,
+    publish_serving,
 )
 from .export import chrome_trace, write_chrome_trace, write_metrics
 from .memory import (
@@ -52,6 +53,7 @@ __all__ = [
     "publish_materialisation",
     "publish_predicate_effectiveness",
     "publish_query_cache",
+    "publish_serving",
     "register_reporter",
     "sample_memory",
     "set_registry",

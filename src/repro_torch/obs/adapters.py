@@ -20,7 +20,35 @@ __all__ = [
     "publish_incremental",
     "publish_materialisation",
     "publish_query_cache",
+    "publish_serving",
+    "SERVING_GAUGES",
 ]
+
+#: ServingTier.stats() keys mirrored as gauges (lifetime-cumulative on
+#: the tier, so re-publishing is idempotent)
+SERVING_GAUGES = (
+    "queries",
+    "batches",
+    "mean_batch",
+    "max_batch",
+    "grouped_queries",
+    "single_queries",
+    "cache_hits",
+    "dedup_hits",
+    "groups",
+    "stale_reads",
+    "applies",
+    "checkpoints",
+    "compactions",
+    "compactions_deferred",
+    "max_queue_depth",
+    "epoch_lag_max",
+    "epochs_published",
+    "epochs_retired",
+    "epochs_live",
+    "epochs_pinned",
+    "epoch",
+)
 
 #: MaterialisationStats fields that accumulate (counter semantics)
 MATERIALISATION_COUNTERS = (
@@ -144,3 +172,16 @@ def publish_distributed(
     for f in DISTRIBUTED_COUNTERS:
         reg.counter(f"{prefix}.{f}").inc(getattr(stats, f))
     reg.gauge(f"{prefix}.epoch").set(stats.epoch)
+
+
+def publish_serving(
+    tier, registry: MetricsRegistry | None = None, prefix: str = "serve.tier"
+) -> None:
+    """Publish a :class:`~repro_torch.serving.ServingTier`'s lifetime
+    stats under ``serve.tier.*`` gauges (its live counters and histograms
+    already stream into the registry under ``serve.*``)."""
+    reg = registry if registry is not None else get_registry()
+    stats = tier.stats()
+    for key in SERVING_GAUGES:
+        if key in stats:
+            reg.gauge(f"{prefix}.{key}").set(stats[key])

@@ -86,14 +86,14 @@ def mu_usage(facts: FactStore) -> MuUsage:
     )
 
 
-def _leaf_payloads(store: ColumnStore, leaves: list[int]):
+def leaf_payloads(store: ColumnStore, leaves: list[int]):
     """The leaves' payloads in one device block (each leaf's run values
-    then its counts) and, per leaf, its offset in the block and its key:
-    the SHA-256 of its ``run_values`` bytes, a zero byte and its
-    ``run_counts`` bytes (int64, little-endian).  The block comes to the
-    host in one transfer."""
+    then its counts), its host copy and, per leaf, its offset in the
+    block and its key: the SHA-256 of its ``run_values`` bytes, a zero
+    byte and its ``run_counts`` bytes (int64, little-endian).  The block
+    comes to the host in one transfer."""
     if not leaves:
-        return None, [], []
+        return None, None, [], []
     payloads = [store.leaf_payload(c) for c in leaves]
     block = torch.cat([t for rv, rc in payloads for t in (rv, rc)])
     flat = block.cpu().numpy().astype("<i8", copy=False)
@@ -106,7 +106,7 @@ def _leaf_payloads(store: ColumnStore, leaves: list[int]):
         offsets.append(off)
         keys.append(hashlib.sha256(values + b"\x00" + counts).digest())
         off += 2 * n
-    return block, offsets, keys
+    return block, flat, offsets, keys
 
 
 def compact_store(inc) -> CompactionStats:
@@ -144,7 +144,7 @@ def _compact_store(inc) -> CompactionStats:
     preds = list(facts.predicates())
     order = store.topo_order(_roots(facts))
     leaves = [cid for cid in order if store.is_leaf(cid)]
-    block, offsets, keys = _leaf_payloads(store, leaves)
+    block, _, offsets, keys = leaf_payloads(store, leaves)
     where = {cid: (off, key) for cid, off, key in zip(leaves, offsets, keys)}
     for cid in order:
         if store.is_leaf(cid):

@@ -433,3 +433,60 @@ def test_stats_are_published():
         assert snap[f"dist.{f}"] == mat[f] + app[f], f
     assert snap["dist.epoch"] == 1 and app["n_del_explicit"] == 2
     reg.reset("dist.")
+
+
+# --------------------------------------------------------------------- #
+# seeded random KBs: materialise, then four apply batches
+# --------------------------------------------------------------------- #
+RANDOM_SEEDS = (9, 10, 11, 13)  # programs with two-atom joins
+
+
+def _random_workload(seed):
+    """``random_kb`` at ``seed`` (3-29 constants, 1-39 facts, 1-5 rules),
+    its supported program, and four batches ``(additions, deletions)``:
+    a mixed batch, its inverse, deleting every explicit fact, re-adding
+    them."""
+    rng = np.random.default_rng(seed)
+    n_constants = int(rng.integers(3, 30))
+    program, dataset = random_kb(rng, n_constants=n_constants,
+                                 n_facts=int(rng.integers(1, 40)),
+                                 n_rules=int(rng.integers(1, 6)))
+    program = JDistributedEngine.supported_program(program)
+    dels = {p: rows[rng.random(rows.shape[0]) < 0.3] for p, rows in dataset.items()}
+    dels = {p: r for p, r in dels.items() if r.shape[0]}
+    adds = {
+        p: rng.integers(n_constants, n_constants + 4, size=(2, rows.shape[1])).astype(np.int64)
+        for p, rows in dataset.items()
+        if rng.random() < 0.5
+    }
+    batches = [(adds, dels), (dels, adds), (None, dataset), (dataset, None)]
+    return program, dataset, batches
+
+
+@functools.lru_cache(maxsize=None)
+def _random_reference(seed) -> list:
+    program, dataset, batches = _random_workload(seed)
+    eng = JDistributedEngine(program, _mesh(), capacity=CAPACITY)
+    eng.materialise(dataset)
+    snaps = [_ref_snapshot(eng)]
+    for adds, dels in batches:
+        eng.apply(additions=adds, deletions=dels)
+        snaps.append(_ref_snapshot(eng))
+    return snaps
+
+
+@pytest.mark.parametrize("seed", RANDOM_SEEDS)
+def test_random_kb_apply_sequence_matches_reference(seed):
+    """After ``materialise`` and after each batch: ``to_dict``, every
+    non-timing ``DistributedStats`` field and the state buffers (rows,
+    count, delta watermark) equal the reference's."""
+    program, dataset, batches = _random_workload(seed)
+    assert len(program.rules)
+    snaps = _random_reference(seed)
+    eng = DistributedEngine(program, device="cpu", capacity=CAPACITY)
+    result = eng.materialise(dataset)
+    _assert_same(eng, snaps[0], result)
+    for (adds, dels), snap in zip(batches, snaps[1:]):
+        eng.apply(additions=adds, deletions=dels)
+        _assert_same(eng, snap)
+    assert eng.epoch == len(batches)

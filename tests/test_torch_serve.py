@@ -2,12 +2,16 @@
 CPU: ``repro_torch.launch.serve_datalog.main(..., "--device", "cpu")``
 and ``repro.launch.serve_datalog.main`` write their reports with
 ``--report-json``, and every non-timing field of every block must be
-equal.  Each run gets fresh metrics registries (swapped in and restored),
-since the report reads the process-wide scopes."""
+equal: static and ``--live``, durable (``--checkpoint-dir`` then
+``--restore``, live and static), ``--mvcc`` (``--concurrency 4`` on its
+order-free fields) and ``--distributed``.  Each run gets fresh metrics
+registries (swapped in and restored), since the report reads the
+process-wide scopes; each package writes its own checkpoint directory."""
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 
 import pytest
@@ -20,7 +24,8 @@ from repro_torch.kernels import ops
 
 #: report keys that hold times, or (``inc.journal_bytes``) the lengths of
 #: the journal's time floats
-TIMED = ("seconds", "qps", "time", "apply_s", "journal_bytes")
+TIMED = ("seconds", "qps", "time", "apply_s", "journal_bytes", "restore_snapshot_s",
+         "restore_replay_s", "_ms")
 
 RUNS = {
     "lubm-static": ["--kb", "lubm", "--scale", "1", "--n-queries", "300"],
@@ -94,12 +99,6 @@ def test_trace_and_metrics_files(tmp_path, capsys, fresh_registries):
 
 
 UNPORTED = [
-    (["--checkpoint-dir", "ckpt"], 8),
-    (["--checkpoint-every", "2"], 8),
-    (["--restore"], 8),
-    (["--mvcc"], 10),
-    (["--concurrency", "4"], 10),
-    (["--distributed"], 10),
     (["--provenance"], 9),
     (["--explain", "path(v000000, v000003)"], 9),
     (["--explain-sample", "3"], 9),
@@ -166,3 +165,139 @@ def test_device_defaults_to_cuda_and_raises_without(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--kb", "paper", "--scale", "1", "--n-queries", "5"])
+
+
+LUBM_LIVE = RUNS["lubm-live"]
+LUBM_STATIC = ["--kb", "lubm", "--scale", "1", "--n-queries", "200"]
+#: runs in order, each package in its own checkpoint directory ``{D}``
+SEQUENCES = {
+    "live-checkpoint-restore": [
+        [*LUBM_LIVE, "--checkpoint-dir", "{D}", "--checkpoint-every", "2"],
+        [*LUBM_LIVE, "--checkpoint-dir", "{D}", "--restore"],
+    ],
+    "static-frozen-restore": [
+        [*LUBM_STATIC, "--checkpoint-dir", "{D}"],
+        [*LUBM_STATIC, "--checkpoint-dir", "{D}", "--restore"],
+    ],
+    "mvcc-concurrency-1": [[*LUBM_STATIC, "--mvcc", "--concurrency", "1"]],
+    "distributed-static": [["--kb", "chain", "--scale", "1", "--n-queries", "200",
+                            "--distributed"]],
+    "distributed-live": [["--kb", "chain", "--scale", "1", "--n-queries", "200",
+                          "--distributed", "--live", "--update-every", "40",
+                          "--update-size", "4", "--live-verify"]],
+}
+
+
+def _manifest_bytes(root: str) -> int:
+    """Bytes of the manifests of the snapshots under a checkpoint root."""
+    return sum(
+        os.path.getsize(os.path.join(root, name, "manifest.json"))
+        for name in os.listdir(root)
+        if os.path.isfile(os.path.join(root, name, "manifest.json"))
+    )
+
+
+@pytest.mark.parametrize("seq", list(SEQUENCES))
+def test_durable_mvcc_distributed_reports_match_reference(seq, tmp_path, capsys,
+                                                          fresh_registries):
+    """Every non-timing field equal, run after run; a snapshot's path is
+    compared below its checkpoint directory, and the disk bytes up to the
+    manifests' ``created_unix`` digits (the data and the WAL are equal byte
+    for byte, ``tests/test_torch_storage.py``)."""
+    tdir, jdir = tmp_path / "port-ckpt", tmp_path / "ref-ckpt"
+    for k, argv in enumerate(SEQUENCES[seq]):
+        jmetrics.set_registry(jmetrics.MetricsRegistry())
+        tmetrics.set_registry(tmetrics.MetricsRegistry())
+        want = _report(jserve.main, [a.replace("{D}", str(jdir)) for a in argv],
+                       tmp_path / f"ref{k}.jsonl")
+        got = _report(serve.main, [*(a.replace("{D}", str(tdir)) for a in argv),
+                                   "--device", "cpu"], tmp_path / f"port{k}.jsonl")
+        out = capsys.readouterr().out
+        assert set(got) == set(want) | {"kernels"}
+        for block in sorted(set(want) - {"latency", "memory"}):
+            g, w = _untimed(got[block]), _untimed(want[block])
+            if block == "restore":
+                g["snapshot"] = os.path.relpath(g["snapshot"], tdir)
+                w["snapshot"] = os.path.relpath(w["snapshot"], jdir)
+            if block == "storage":
+                jitter = _manifest_bytes(tdir) - _manifest_bytes(jdir)
+                assert g.pop("storage.disk_bytes") - w.pop("storage.disk_bytes") == jitter
+            assert g == w, block
+        if "--restore" in argv:
+            assert "[restore] warm start" in out or "[restore] frozen snapshot" in out
+        if "--live-verify" in argv:
+            assert got["live-verify"]["ok"] is True
+        if "--distributed" in argv:
+            assert "MISMATCH" not in json.dumps(got["dist-verify"])
+            assert got["dist-verify"]["dist.verify_ok"] == 1
+    if seq == "live-checkpoint-restore":
+        assert got["restore"]["snapshot_epoch"] == got["restore"]["final_epoch"] == 2
+        assert got["live"]["inc.epoch"] == 4
+
+
+def test_mvcc_concurrency_4_matches_reference_order_free(tmp_path, capsys, fresh_registries):
+    """Four clients and a writer: what does not depend on the threads'
+    order equals the reference's (the KB, the load, the queries served,
+    zero stale reads, a verified final store, the checkpoints' presence)."""
+    argv = [*LUBM_LIVE[:6], "--mvcc", "--concurrency", "4", "--live", "--update-every", "60",
+            "--update-size", "6", "--live-verify", "--checkpoint-dir", "{D}",
+            "--checkpoint-every", "1"]
+    want = _report(jserve.main, [a.replace("{D}", str(tmp_path / "j")) for a in argv],
+                   tmp_path / "ref.jsonl")
+    got = _report(serve.main, [*(a.replace("{D}", str(tmp_path / "t")) for a in argv),
+                               "--device", "cpu"], tmp_path / "port.jsonl")
+    capsys.readouterr()
+    assert set(got) == set(want) | {"kernels"}
+    for block in ("kb:lubm", "materialise", "fixpoint"):
+        assert _untimed(got[block]) == _untimed(want[block]), block
+    for key in ("concurrency", "queries", "stale_reads"):
+        assert got["serving"][key] == want["serving"][key], key
+    assert got["serving"]["stale_reads"] == 0 and got["serving"]["queries"] == 300
+    assert got["serve"]["queries"] == 300 and got["live-verify"]["ok"] is True
+    live = got["live"]
+    # how many batches land before the clients finish depends on the threads
+    assert live["inc.epoch"] == live["apply_batches"] == got["serving"]["applies"] >= 1
+    assert got["serving"]["epochs_published"] >= live["apply_batches"] + 1
+    assert got["storage"]["storage.checkpoints"] == live["apply_batches"] + 1
+
+
+def test_mvcc_rejects_distributed(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", "--mvcc", "--distributed"])
+    assert exc.value.code == 2
+    assert "mutually exclusive" in capsys.readouterr().err
+
+
+def test_mvcc_client_failure_exits_non_zero(monkeypatch, capsys, fresh_registries):
+    """An error in a client thread reaches the caller."""
+    from repro_torch.serving import ServingTier
+
+    real = ServingTier.answer
+    calls = {"n": 0}
+
+    def flaky(self, text, timeout=60.0):
+        calls["n"] += 1
+        if calls["n"] == 70:  # past the warm-up, inside a client thread
+            raise RuntimeError("client failed")
+        return real(self, text, timeout)
+
+    monkeypatch.setattr(ServingTier, "answer", flaky)
+    with pytest.raises(RuntimeError, match="client failed"):
+        serve.main([*LUBM_STATIC, "--device", "cpu", "--mvcc", "--concurrency", "2"])
+    capsys.readouterr()
+
+
+def test_run_returns_the_served_state(tmp_path, capsys, fresh_registries):
+    """``run`` hands back the checkpoint manager, the recovery and the
+    distributed engine for drivers."""
+    argv = [*LUBM_LIVE, "--device", "cpu", "--checkpoint-dir", str(tmp_path / "ck"),
+            "--checkpoint-every", "1"]
+    served = serve.run(argv)
+    assert served.rc == 0 and served.recovery is None
+    assert served.ckpt.latest().endswith(f"snap-{served.inc.epoch:08d}")
+    restored = serve.run([*argv, "--restore", "--n-queries", "10"])
+    assert restored.recovery.final_epoch == served.inc.epoch == restored.inc.epoch
+    dist = serve.run(["--kb", "chain", "--scale", "1", "--n-queries", "5", "--device", "cpu",
+                      "--distributed"])
+    assert dist.dist is not None and dist.dist.n_shards == 1
+    capsys.readouterr()

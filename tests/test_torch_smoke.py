@@ -351,3 +351,17 @@ def test_query_cases_match_pallas(smoke, label, shape):
 def test_mirrored_cases_are_every_card_case(smoke):
     for name, labels in MIRRORED.items():
         assert [lab for lab, _, _ in _int32_cases(smoke, name)] == labels
+
+
+def test_larger_launches_keeps_only_launches_above_every_base(smoke):
+    base = {
+        "serve": {"largest_launch": {"sorted_member": {"n": 10, "m": 30},
+                                     "rle_expand": {"runs": 8, "total": 30}}},
+        "live": {"largest_launch": {"sorted_member": {"n": 12, "m": 30},
+                                    "rle_expand": {}}},
+    }
+    runs = {"mvcc": {"largest_launch": {"sorted_member": {"n": 12, "m": 30},
+                                        "rle_expand": {"runs": 30, "total": 30},
+                                        "join_bounds": {}}}}
+    got = smoke.larger_launches(base, runs)
+    assert got == {"mvcc": {"largest_launch": {"rle_expand": {"runs": 30, "total": 30}}}}
