@@ -9,7 +9,12 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
                        source, all in parallel);
 2. small             — ``CMatEngine(fused=True)`` on the card against the
-                       same engine on the CPU, on five small workloads;
+                       same engine on the CPU, on five small workloads; then
+                       each again with the derivation journal on, and
+                       ``FlatEngine`` likewise, on the card and on the CPU:
+                       the journal-off fact sets, equal records but for
+                       ``time_ns``, equal verified proof trees of up to 50
+                       derived facts;
 3. small-query       — ``tests/test_query.py``'s query lists on its KBs and
                        ``benchmarks/bench_query.py``'s queries on its
                        non-smoke KBs, answered by ``QueryEngine`` over a
@@ -31,10 +36,22 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        walls, ``ExecStats`` fractions, launches, host syncs,
                        the snapshots' build time and bytes; the store's
                        node count and id counter unchanged by the stream;
+5a. provenance       — phase 4's load and materialise again with the
+                       journal on under a ``MemorySampler``: the same fact
+                       set and stats; records, dropped, journal bytes, the
+                       ``rule.*`` gauges, ``mem.peak.materialise.*``; 20
+                       derived facts drawn with seed 0 explained on the card,
+                       each verified and re-checked on its own against the
+                       CPU flat oracle (every node in the oracle, every leaf
+                       explicit, every rule applied to exactly its children
+                       yields its node); the table-build wall, the median and
+                       largest explain wall; the host syncs of a journal-off
+                       (equal to phase 16's) and a journal-on materialise;
 6. small-distributed — ``DistributedEngine`` on the card against the same
                        engine on the CPU on three small workloads and one
                        that must regrow its join padding: fact sets, stats
-                       and state buffers row for row;
+                       and state buffers row for row; with the journal on,
+                       the records after ``merge_shard_records`` equal;
 7. full-distributed  — ``lubm_like(500, 30_000, 1_000)`` (the largest KB the
                        engine's 15-bit ids allow at this shape) materialised
                        on the card, its stats held against the JAX
@@ -83,8 +100,12 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``join_bounds`` path sweep;
 10. serve-small      — the port's server (``repro_torch.launch.serve_datalog``,
                        in-process) at ``--kb lubm --scale 1``, static and
-                       ``--live --live-verify``, on the card and with
-                       ``--device cpu``: every non-timing report field equal;
+                       ``--live --live-verify``, with ``--provenance
+                       --hot-rules --explain-sample 8 --explain
+                       "Agent(prof6)"``, on the card and with ``--device
+                       cpu``: every non-timing report field equal
+                       (``hot_rules`` by ``rule_id`` against the two equal
+                       cost tables), every explanation verified;
 11. serve            — the static server at ``--scale 10000``
                        (``lubm_like(40_000, 1_000_000, 80_000)``) with 1,000
                        queries on the card: its fact count and answer total
@@ -93,8 +114,10 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        q/s, p50/p90/p99, hit rate, mu-nodes, launches, and the
                        host syncs of one more pass of the stream;
 12. live             — the live server there (``--live --update-every 50
-                       --update-size 8 --live-verify``, 250 queries, 4
-                       batches), ending ``[live-verify] OK`` at an epoch equal
+                       --update-size 8 --live-verify``, 150 queries, 2
+                       batches: cut from 250 and 4 to keep the whole run
+                       within 80 % of its time limit, phase 13 applying 4
+                       batches to the same store), ending ``[live-verify] OK`` at an epoch equal
                        to the batches applied: apply p50/p99, the ``inc.*``
                        counts, launches, ``max_memory_allocated``, and the
                        host syncs of one more batch; then the largest
@@ -103,23 +126,29 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        (the profiler's traces lose events after these
                        phases, so phase 9 runs before them);
 13. durable          — a snapshot of the server at ``--scale 1`` written from
-                       the card and from the CPU: equal ``data.bin`` SHA-256,
-                       each restoring on the other device to the same
-                       ``to_dict``; then the live server at ``--scale 10000``
-                       with ``--checkpoint-dir`` and a checkpoint every 3
+                       the card and from the CPU: equal ``data.bin`` SHA-256
+                       and ``provenance.json`` but for ``time_ns``, each
+                       restoring on the other device to the same ``to_dict``,
+                       loading the other's sidecar and explaining 8 facts;
+                       then the live server at ``--scale 10000`` with
+                       ``--provenance --hot-rules --explain-sample 8``,
+                       ``--checkpoint-dir`` and a checkpoint every 3
                        batches, stopped by a simulated crash in place of its
                        final checkpoint (snapshot at epoch 3, the 4th batch
                        in the WAL), and the same server again in process
                        with ``--restore``: ``[restore] warm start`` from
                        epoch 3, one WAL batch replayed, epoch 4, the store
-                       equal to the crashed one, ``[live-verify] OK``; the
-                       checkpoint wall, the snapshot's bytes, the restore's
+                       equal to the crashed one, ``[live-verify] OK``, the
+                       epoch-3 snapshot's ``provenance.json`` loaded by the
+                       restore and 8 explanations after the replayed batch
+                       verified; the checkpoint wall, the snapshot's bytes, the restore's
                        snapshot and replay walls against the cold load, and
                        the host syncs of the restore (its stream: 10
                        queries);
 14. mvcc             — ``--mvcc --concurrency 4 --live --live-verify`` there,
-                       100 queries, warm-started from phase 13's directory,
-                       checkpointing every 2 batches: zero stale reads, the tier's epoch the
+                       100 queries, warm-started from phase 13's directory
+                       with the journal off (its snapshot's sidecar is not
+                       loaded), checkpointing every 2 batches: zero stale reads, the tier's epoch the
                        restored epoch plus the batches applied, ``[live-verify]
                        OK``; q/s, p50/p90/p99, apply p50/p99, epochs published
                        and retired, the peak number pinned, launches, peak
@@ -144,8 +173,8 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        device and host operators; and, within phase 12, one
                        more live batch and the 50 queries after it.
 
-Launch counts are zeroed just before each main-path run (phases 4, 5, 7,
-8, 11-15; phase 13's crashed run and its restore apart) and read just
+Launch counts are zeroed just before each main-path run (phases 4, 5, 5a,
+7, 8, 11-15; phase 13's crashed run and its restore apart) and read just
 after; every kernel of a path must have launched there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -157,6 +186,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1141,6 +1171,7 @@ def check_small_workloads() -> None:
         if runs["cuda"][1] != runs["cpu"][1]:
             raise AssertionError(f"small {name}: stats differ {runs['cuda'][1]} vs {runs['cpu'][1]}")
         log(f"[small] {name}: equal, {dict(zip(fields, runs['cuda'][1]))}")
+        check_small_provenance(name, program, dataset, runs["cuda"][0])
 
 
 def run_full(program, dataset) -> dict:
@@ -1169,6 +1200,7 @@ def run_full(program, dataset) -> dict:
         "rounds": stats.rounds,
         "n_meta_facts": stats.n_meta_facts,
         "n_facts": stats.n_facts,
+        "rule_applications_skipped": stats.rule_applications_skipped,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
         "largest_launch": largest,
@@ -1523,6 +1555,288 @@ def run_queries(eng, oracle, d) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 5a: provenance (and its checks in phases 2, 6, 10 and 13)
+# --------------------------------------------------------------------- #
+#: derived facts explained per small workload (phase 2), per full-size
+#: run (phase 5a, drawn with seed 0) and per server run (phases 10, 13)
+SMALL_EXPLAINS, FULL_EXPLAINS, SERVE_EXPLAINS = 50, 20, 8
+
+
+@contextlib.contextmanager
+def journal_on():
+    """The port's derivation journal on, empty and at epoch 0; off and
+    empty again after (the server's ``run`` leaves it as it found it only
+    through ``main``)."""
+    from repro_torch.obs.provenance import get_journal
+
+    journal = get_journal()
+    journal.enabled = True
+    journal.clear()
+    journal.begin_epoch(0)
+    try:
+        yield journal
+    finally:
+        journal.enabled = False
+        journal.clear()
+        journal.begin_epoch(0)
+
+
+def _untimed_records(journal) -> list:
+    """Every record slot but ``time_ns`` (host time)."""
+    return [r.to_list()[:-1] for r in journal.records]
+
+
+def _untimed_payload(payload: dict) -> dict:
+    return {**payload,
+            "records": [r[:-1] for r in payload["records"]],
+            "costs": {rid: {k: v for k, v in c.items() if k != "time_ns"}
+                      for rid, c in payload["costs"].items()}}
+
+
+def _rule_costs(journal) -> dict:
+    """The journal's whole cost table by ``rule_id``, host times aside."""
+    return {h["rule_id"]: {k: v for k, v in h.items() if k != "time_ns"}
+            for h in journal.hot_rules(len(journal.costs))}
+
+
+def _derived_targets(mat: dict, explicit: dict, limit: int) -> list:
+    """The first ``limit`` derived (not explicit) facts, in predicate and
+    row order, from CPU copies."""
+    out = []
+    for pred in sorted(mat):
+        rows = np.asarray(mat[pred].cpu()).reshape(mat[pred].shape[0], -1)
+        exp = explicit.get(pred)
+        seen = set() if exp is None else {
+            tuple(map(int, r)) for r in np.asarray(exp.cpu()).reshape(-1, rows.shape[1])}
+        for r in rows.tolist():
+            if tuple(r) not in seen:
+                out.append((pred, tuple(r)))
+                if len(out) == limit:
+                    return out
+    return out
+
+
+def _all_verified(node) -> bool:
+    return node is not None and node["verified"] and all(
+        _all_verified(c) for c in node["children"])
+
+
+class _FactSet:
+    """Membership of single facts in CPU row tables (arity <= 2), by a
+    binary search over sorted packed codes."""
+
+    def __init__(self, tables: dict):
+        self.tables, self._codes = tables, {}
+
+    @staticmethod
+    def _code(terms) -> int:
+        return terms[0] if len(terms) == 1 else (terms[0] << 32) | terms[1]
+
+    def __contains__(self, fact) -> bool:
+        import torch
+
+        pred, terms = fact
+        if pred not in self.tables:
+            return False
+        if pred not in self._codes:
+            rows = torch.as_tensor(np.asarray(self.tables[pred])).cpu().to(torch.int64)
+            rows = rows.reshape(rows.shape[0], -1)
+            codes = rows[:, 0] if rows.shape[1] == 1 else (rows[:, 0] << 32) | rows[:, 1]
+            self._codes[pred] = (torch.sort(codes).values, rows.shape[1])
+        codes, arity = self._codes[pred]
+        if arity != len(terms) or codes.shape[0] == 0:
+            return False
+        code = self._code(terms)
+        i = int(torch.searchsorted(codes, torch.tensor([code])))
+        return i < codes.shape[0] and int(codes[i]) == code
+
+
+def _recheck_tree(node: dict, rules: list, oracle: _FactSet, explicit: _FactSet) -> int:
+    """Re-check a proof tree on its own: every node's fact is in the flat
+    oracle, every leaf is explicit, and each derived node's rule applied to
+    exactly its children's facts yields that node.  Returns its nodes."""
+    fact = (node["pred"], tuple(node["terms"]))
+    if fact not in oracle:
+        raise AssertionError(f"proof node {node['fact']} is not in the flat oracle")
+    if node["kind"] == "explicit":
+        if node["children"] or fact not in explicit:
+            raise AssertionError(f"proof leaf {node['fact']} is not an explicit fact")
+        return 1
+    rule = rules[node["rule_id"]]
+    children = node["children"]
+    if len(children) != len(rule.body) or not children:
+        raise AssertionError(f"{node['fact']}: {len(children)} children for {rule}")
+    theta: dict = {}
+    for atom, child in zip(rule.body, children):
+        if child["pred"] != atom.predicate or len(child["terms"]) != len(atom.terms):
+            raise AssertionError(f"{node['fact']}: child {child['fact']} against {atom}")
+        for t, v in zip(atom.terms, child["terms"]):
+            if (t != v) if isinstance(t, int) else (theta.setdefault(t, v) != v):
+                raise AssertionError(f"{node['fact']}: {rule} does not match its children")
+    head = tuple(t if isinstance(t, int) else theta[t] for t in rule.head.terms)
+    if rule.head.predicate != node["pred"] or head != fact[1]:
+        raise AssertionError(f"{node['fact']}: {rule} on its children yields {head}")
+    return 1 + sum(_recheck_tree(c, rules, oracle, explicit) for c in children)
+
+
+def _provenance_run(make, targets_of, explain) -> tuple:
+    """One engine built with the journal on: ``(facts, untimed records,
+    {target: proof tree})``."""
+    with journal_on() as journal:
+        eng, facts = make()
+        records = _untimed_records(journal)
+        trees = {t: explain(eng, *t) for t in targets_of(eng, facts)}
+    return facts, records, trees
+
+
+def check_small_provenance(name: str, program, dataset, plain: dict) -> None:
+    """Phase 2 with the journal on: ``CMatEngine(fused=True)`` and
+    ``FlatEngine`` on the card and on the CPU give the journal-off fact
+    sets, equal records but for ``time_ns`` and equal, verified proof trees
+    for up to ``SMALL_EXPLAINS`` derived facts."""
+    from repro_torch.core import CMatEngine, FlatEngine
+
+    def cmat(device):
+        eng = CMatEngine(program, fused=True, device=device)
+        eng.load(dataset)
+        eng.materialise()
+        return eng, eng.materialisation()
+
+    def flat(device):
+        eng = FlatEngine(program, device=device)
+        eng.load(dataset)
+        return eng, eng.materialise()
+
+    targets = None
+    for label, make, explicit_of in (("cmat", cmat, lambda e: e._explicit),
+                                     ("flat", flat, lambda e: e._explicit)):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            runs[device] = _provenance_run(
+                lambda: make(device),
+                lambda eng, facts: targets or _derived_targets(facts, explicit_of(eng),
+                                                               SMALL_EXPLAINS),
+                lambda eng, pred, terms: eng.explain_fact(pred, terms))
+            targets = targets or list(runs[device][2])
+        (facts, records, trees), (cfacts, crecords, ctrees) = runs["cuda"], runs["cpu"]
+        if not (_facts_equal(facts, plain) and _facts_equal(cfacts, plain)):
+            raise AssertionError(f"small {name} {label}: the journal changed the fact set")
+        if not records or records != crecords:
+            raise AssertionError(f"small {name} {label}: journal records differ (card vs CPU)")
+        if trees != ctrees or not all(_all_verified(t) for t in trees.values()):
+            raise AssertionError(f"small {name} {label}: proof trees differ or are unverified")
+        log(f"[small] {name} {label} with the journal: facts as without it, {len(records)} "
+            f"records and {len(trees)} verified proof trees equal (card vs CPU)")
+
+
+def run_provenance(program, dataset, full: dict, oracle: dict) -> dict:
+    """Phase 5a: phase 4's load and materialise again with the journal on
+    under a ``MemorySampler``, then ``explain_fact`` on the card for
+    ``FULL_EXPLAINS`` derived facts drawn with seed 0, each tree re-checked
+    against the CPU flat oracle on its own; the host syncs of a
+    journal-off and a journal-on materialise."""
+    import torch
+
+    from repro_torch.core import CMatEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_datalog import _sample_derived
+    from repro_torch.obs import MemorySampler, metrics
+    from repro_torch.obs.provenance import Explainer
+
+    prev = metrics.set_registry(metrics.MetricsRegistry())
+    try:
+        with journal_on() as journal:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with MemorySampler() as sampler:
+                eng = CMatEngine(program, fused=True)
+                eng.load(dataset)
+                stats = eng.materialise()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reg = metrics.get_registry()
+            got = [stats.n_facts, stats.n_meta_facts, stats.rounds,
+                   stats.rule_applications_skipped]
+            want = [full[k] for k in ("n_facts", "n_meta_facts", "rounds",
+                                      "rule_applications_skipped")]
+            if got != want:
+                raise AssertionError(f"provenance: stats {got} with the journal, {want} "
+                                     "without")
+            if not _facts_equal(eng.materialisation(), oracle):
+                raise AssertionError("provenance: the journal changed the fact set")
+            out = {
+                "wall_s": wall,
+                "records": len(journal.records),
+                "dropped": journal.dropped,
+                "journal_bytes": journal.memory_report()["journal_bytes"],
+                "rule_gauges": reg.snapshot("rule."),
+                "mem_peak": reg.snapshot("mem.peak.materialise."),
+                "sampler": {"samples": sampler.samples, "throttled": sampler.throttled,
+                            "time_s": sampler.time_ns / 1e9},
+                "hot_rules": journal.hot_rules(5),
+            }
+            targets = _sample_derived(eng.materialisation(), eng._explicit, FULL_EXPLAINS, 0)
+            if len(targets) != FULL_EXPLAINS:
+                raise AssertionError(f"provenance: {len(targets)} derived facts drawn")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._prov_tables = Explainer.build_tables(eng.facts)
+            torch.cuda.synchronize()
+            out["table_build_s"] = time.perf_counter() - t0
+            walls, trees = [], []
+            for pred, terms in targets:
+                t0 = time.perf_counter()
+                node = eng.explain_fact(pred, terms)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if not _all_verified(node):
+                    raise AssertionError(f"provenance: {pred}{terms} not found or unverified")
+                trees.append(node)
+            launches = ops.launch_counts()
+        for k in ("rle_expand", "sorted_member"):
+            if not launches[k]:
+                raise AssertionError(f"provenance: {k} never launched")
+        t0 = time.perf_counter()
+        facts, explicit = _FactSet(oracle), _FactSet(dataset)
+        nodes = [_recheck_tree(t, list(program), facts, explicit) for t in trees]
+        out.update({
+            "explained": len(trees),
+            "verified": len(trees),
+            "proof_nodes": nodes,
+            "proof_depths": [_depth(t) for t in trees],
+            "recheck_s": time.perf_counter() - t0,
+            "explain_median_s": statistics.median(walls),
+            "explain_max_s": max(walls),
+            "launches": launches,
+        })
+    finally:
+        metrics.set_registry(prev)
+    del eng
+
+    def materialise():
+        e = CMatEngine(program, fused=True)
+        e.load(dataset)
+        e.materialise()
+
+    _, out["syncs_journal_off"] = _count_syncs(materialise)
+    with journal_on():
+        _, out["syncs_journal_on"] = _count_syncs(materialise)
+    log(f"[provenance] lubm_like({N_DEPT}, {N_STUDENTS}, {N_COURSES}) with the journal and "
+        f"a MemorySampler: {out}")
+    log(f"[provenance] {len(trees)}/{FULL_EXPLAINS} sampled explanations verified on the "
+        f"card and re-checked against the flat oracle; table build "
+        f"{out['table_build_s']:.3f} s, explain median {out['explain_median_s']:.4f} s, max "
+        f"{out['explain_max_s']:.4f} s; syncs journal off {out['syncs_journal_off']}, on "
+        f"{out['syncs_journal_on']}")
+    return out
+
+
+def _depth(node: dict) -> int:
+    return 1 + max((_depth(c) for c in node["children"]), default=0)
+
+
+# --------------------------------------------------------------------- #
 # phases 6-8: the distributed engine and the closure
 # --------------------------------------------------------------------- #
 def _nonempty(facts: dict) -> dict:
@@ -1574,6 +1888,19 @@ def check_small_distributed() -> None:
         st = card.stats
         log(f"[small-distributed] {name}: equal, rounds {st.rounds}, rows_joined "
             f"{st.rows_joined}, exchange_regrows {st.exchange_regrows}")
+        # with the journal on: the records after ``merge_shard_records``
+        # (``check_integrity``) equal card vs CPU
+        records = {}
+        for device in ("cuda", "cpu"):
+            with journal_on() as journal:
+                eng = DistributedEngine(program, device=device, capacity=1 << 10, **kw)
+                eng.materialise(dataset)
+                eng.check_integrity(cpu.to_dict())
+                records[device] = _untimed_records(journal)
+        if not records["cuda"] or records["cuda"] != records["cpu"]:
+            raise AssertionError(f"small-distributed {name}: journal records differ")
+        log(f"[small-distributed] {name}: {len(records['cuda'])} merged journal records "
+            "equal (card vs CPU)")
 
 
 def _drop_rows(rows: np.ndarray, drop: np.ndarray) -> np.ndarray:
@@ -1737,11 +2064,19 @@ SERVE_SCALE = 10_000
 SERVE_QUERIES = 1000
 #: the live phase's stream: a batch every ``LIVE_EVERY`` queries
 LIVE_QUERIES, LIVE_EVERY, LIVE_SIZE = 250, 50, 8
-#: the small phase: the server's static and live runs at ``--scale 1``
+#: phase 12's own stream: 2 batches (cut from ``LIVE_QUERIES``' 4 to keep the
+#: smoke within 80 % of its time limit; phase 13 still applies 4 there)
+LIVE_PHASE_QUERIES, LIVE_PHASE_BATCHES = 150, 2
+#: the provenance flags of the server runs that explain (phases 10, 13)
+PROVENANCE_FLAGS = ["--provenance", "--hot-rules", "--explain-sample", "8"]
+#: the small phase: the server's static and live runs at ``--scale 1``,
+#: explaining a derived fact of that KB and a sample
 SMALL_SERVE = [
-    ["--kb", "lubm", "--scale", "1", "--n-queries", "300"],
+    ["--kb", "lubm", "--scale", "1", "--n-queries", "300", *PROVENANCE_FLAGS,
+     "--explain", "Agent(prof6)"],
     ["--kb", "lubm", "--scale", "1", "--n-queries", "300", "--live", "--update-every",
-     "100", "--update-size", "6", "--live-verify"],
+     "100", "--update-size", "6", "--live-verify", *PROVENANCE_FLAGS,
+     "--explain", "Agent(prof6)"],
 ]
 #: report keys that hold times, or the lengths of the journal's time floats
 SERVE_TIMED = ("seconds", "qps", "time", "apply_s", "journal_bytes")
@@ -1779,15 +2114,45 @@ def _untimed(block: dict) -> dict:
     return {k: v for k, v in block.items() if not any(t in k for t in SERVE_TIMED)}
 
 
+def _serve_explaining(argv: list[str]):
+    """``_serve`` with the journal on: ``(ServeRun, blocks, the journal's
+    cost table by rule_id)``."""
+    with journal_on() as journal:
+        served, blocks = _serve(argv)
+        return served, blocks, _rule_costs(journal)
+
+
+def _check_provenance_block(label: str, card: dict, cpu: dict, costs: dict,
+                            cpu_costs: dict) -> None:
+    """The ``[provenance]`` blocks of two runs: every field but
+    ``hot_rules`` equal; ``hot_rules`` (ranked by host time) by
+    ``rule_id`` against the two equal cost tables; every explanation
+    found and verified."""
+    if costs != cpu_costs:
+        raise AssertionError(f"{label}: rule cost tables differ")
+    a, b = dict(card), dict(cpu)
+    hot = a.pop("hot_rules") + b.pop("hot_rules")
+    if a != b:
+        raise AssertionError(f"{label}: [provenance] {a} != {b}")
+    if any({k: v for k, v in h.items() if k != "time_ns"} != costs[h["rule_id"]]
+           for h in hot):
+        raise AssertionError(f"{label}: hot_rules disagree with the cost table")
+    if not a["explanations"] or not all(e["verified"] for e in a["explanations"]):
+        raise AssertionError(f"{label}: explanations {a['explanations']}")
+
+
 def check_small_serve() -> None:
     """Phase 10: the server at ``--scale 1`` on the card and on the CPU,
-    static and ``--live --live-verify``: every non-timing report field
-    equal."""
+    static and ``--live --live-verify``, both with the provenance flags:
+    every non-timing report field equal, ``hot_rules`` by ``rule_id``."""
     for argv in SMALL_SERVE:
-        (_, card), (_, cpu) = (_serve([*argv, "--device", d]) for d in ("cuda", "cpu"))
+        (_, card, costs), (_, cpu, cpu_costs) = (
+            _serve_explaining([*argv, "--device", d]) for d in ("cuda", "cpu"))
         if set(card) != set(cpu):
             raise AssertionError(f"serve-small {argv}: blocks {set(card) ^ set(cpu)} differ")
-        for block in sorted(set(card) - {"latency", "memory", "kernels"}):
+        _check_provenance_block(f"serve-small {argv}", card["provenance"], cpu["provenance"],
+                                costs, cpu_costs)
+        for block in sorted(set(card) - {"latency", "memory", "kernels", "provenance"}):
             if _untimed(card[block]) != _untimed(cpu[block]):
                 raise AssertionError(f"serve-small {argv}: [{block}] {card[block]} != {cpu[block]}")
         if not any(card["kernels"]["launches"].values()):
@@ -1796,7 +2161,9 @@ def check_small_serve() -> None:
             raise AssertionError(f"serve-small {argv}: live-verify failed")
         log(f"[serve-small] {' '.join(argv)}: card and CPU reports equal "
             f"({len(card) - 3} blocks compared), answers {card['serve']['answers']}, "
-            f"card launches {card['kernels']['launches']}")
+            f"card launches {card['kernels']['launches']}; [provenance] "
+            f"{card['provenance']['records']} records, "
+            f"{len(card['provenance']['explanations'])} explanations verified")
 
 
 def _percentiles(walls_s) -> dict:
@@ -1878,7 +2245,7 @@ def run_live(oracle_facts: int, profile: bool) -> dict:
 
     from repro_torch.kernels import ops
 
-    argv = ["--kb", "lubm", "--scale", str(SERVE_SCALE), "--n-queries", str(LIVE_QUERIES),
+    argv = ["--kb", "lubm", "--scale", str(SERVE_SCALE), "--n-queries", str(LIVE_PHASE_QUERIES),
             "--live", "--update-every", str(LIVE_EVERY), "--update-size", str(LIVE_SIZE),
             "--live-verify"]
     torch.cuda.synchronize()
@@ -1892,7 +2259,7 @@ def run_live(oracle_facts: int, profile: bool) -> dict:
     live = blocks["live"]
     if not blocks["live-verify"]["ok"]:
         raise AssertionError("live: live-verify failed")
-    if live["inc.epoch"] != served.applied or served.applied < 4:
+    if live["inc.epoch"] != served.applied or served.applied < LIVE_PHASE_BATCHES:
         raise AssertionError(f"live: epoch {live['inc.epoch']} after {served.applied} batches")
     if blocks["materialise"]["n_facts"] != oracle_facts:
         raise AssertionError(f"live: {blocks['materialise']['n_facts']} facts loaded, the "
@@ -1983,27 +2350,42 @@ def check_small_durable(tmp: Path) -> dict:
     from repro_torch.launch.serve_datalog import build_kb
     from repro_torch.storage import CheckpointManager
 
-    runs, digests = {}, {}
+    runs, digests, sidecars = {}, {}, {}
     for dev in ("cuda", "cpu"):
         root = tmp / f"small-{dev}"
-        served, _ = _serve([*SMALL_DURABLE, "--checkpoint-dir", str(root), "--device", dev])
+        served, _, _ = _serve_explaining(
+            [*SMALL_DURABLE, *PROVENANCE_FLAGS, "--checkpoint-dir", str(root), "--device", dev])
         runs[dev] = {p: r.cpu() for p, r in served.inc.to_dict().items()}
-        digests[dev] = hashlib.sha256(
-            (Path(served.ckpt.latest()) / "data.bin").read_bytes()).hexdigest()
+        snap = Path(served.ckpt.latest())
+        digests[dev] = hashlib.sha256((snap / "data.bin").read_bytes()).hexdigest()
+        sidecars[dev] = json.loads((snap / "provenance.json").read_text())
     if digests["cuda"] != digests["cpu"]:
         raise AssertionError(f"durable-small: data.bin differs by device {digests}")
+    if _untimed_payload(sidecars["cuda"]) != _untimed_payload(sidecars["cpu"]):
+        raise AssertionError("durable-small: provenance.json differs by device (time_ns aside)")
     program, _, _ = build_kb("lubm", 1)
+    targets = None
     for written, restored_on in (("cuda", "cpu"), ("cpu", "cuda")):
         mgr = CheckpointManager(str(tmp / f"small-{written}"), label="lubm:scale1")
-        inc, _ = mgr.restore(program, device=restored_on)
+        with journal_on() as journal:
+            inc, _ = mgr.restore(program, device=restored_on)
+            if journal.to_payload() != sidecars[written]:
+                raise AssertionError(f"durable-small: the {written} sidecar was not loaded "
+                                     f"on {restored_on}")
+            targets = targets or _derived_targets(inc.to_dict(), inc.explicit, SERVE_EXPLAINS)
+            if not all(_all_verified(inc.explain_fact(p, t)) for p, t in targets):
+                raise AssertionError(f"durable-small: an explanation after the restore on "
+                                     f"{restored_on} is not verified")
         got = {p: r.cpu() for p, r in inc.to_dict().items()}
         if set(got) != set(runs[written]) or not all(
                 torch.equal(got[p], runs[written][p]) for p in got):
             raise AssertionError(f"durable-small: a {written} snapshot restored on "
                                  f"{restored_on} differs")
     log(f"[durable-small] --scale 1 snapshot from the card and from the CPU: data.bin "
-        f"SHA-256 {digests['cuda']} in both; each restores on the other device to the "
-        f"same to_dict")
+        f"SHA-256 {digests['cuda']} in both; provenance.json equal but for time_ns "
+        f"({len(sidecars['cuda']['records'])} records); each restores on the other device "
+        f"to the same to_dict, loads the other's sidecar and explains "
+        f"{len(targets)} facts, verified")
     return {"data_sha256": digests["cuda"]}
 
 
@@ -2023,8 +2405,8 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
 
     out = check_small_durable(tmp)
     root = tmp / "durable"
-    argv = [*_live_argv(SERVE_SCALE, LIVE_QUERIES), "--checkpoint-dir", str(root),
-            "--checkpoint-every", str(DURABLE_EVERY)]
+    argv = [*_live_argv(SERVE_SCALE, LIVE_QUERIES), *PROVENANCE_FLAGS, "--checkpoint-dir",
+            str(root), "--checkpoint-every", str(DURABLE_EVERY)]
     real = CheckpointManager.checkpoint
     walls: list[tuple[int, float]] = []
 
@@ -2043,8 +2425,13 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
     ops.reset_launch_counts()
     report = tmp / "durable.jsonl"
     t0 = time.perf_counter()
+    crashed_records = []
     try:
-        serve.run([*argv, "--report-json", str(report)])
+        with journal_on() as journal:
+            try:
+                serve.run([*argv, "--report-json", str(report)])
+            finally:
+                crashed_records.append(len(journal.records))
         raise AssertionError("durable: the server reached its final checkpoint")
     except _Crash as crash:
         crashed = crash.inc
@@ -2064,6 +2451,9 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
     if snap.name != f"snap-{DURABLE_EVERY:08d}" or len(mgr.wal.records()) != 1:
         raise AssertionError(f"durable: latest {snap.name}, {len(mgr.wal.records())} WAL "
                              "records")
+    if not (snap / "provenance.json").is_file():
+        raise AssertionError(f"durable: {snap.name} holds no provenance.json")
+    sidecar_records = len(json.loads((snap / "provenance.json").read_text())["records"])
     out.update({
         "wall_s": wall,
         "load_s": cold["materialise"]["seconds"],
@@ -2078,20 +2468,29 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
 
     # the restore run, its restore's host synchronisations counted
     real_restore = CheckpointManager.restore
+    real_load = CheckpointManager._load_provenance
+    loaded = []
 
     def restore(self, program, **kwargs):
         result, out["restore_syncs"] = _count_syncs(
             lambda: real_restore(self, program, **kwargs))
         return result
 
+    def load_provenance(self, snap_dir):
+        loaded.append(real_load(self, snap_dir))
+        return loaded[-1]
+
     CheckpointManager.restore = restore
+    CheckpointManager._load_provenance = load_provenance
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        served, blocks = _serve([*_live_argv(SERVE_SCALE, DURABLE_RESTORE_QUERIES),
-                                 "--checkpoint-dir", str(root), "--restore"])
+        served, blocks, _ = _serve_explaining(
+            [*_live_argv(SERVE_SCALE, DURABLE_RESTORE_QUERIES), *PROVENANCE_FLAGS,
+             "--checkpoint-dir", str(root), "--restore"])
     finally:
         CheckpointManager.restore = real_restore
+        CheckpointManager._load_provenance = real_load
     torch.cuda.synchronize()
     restore_wall = time.perf_counter() - t0
     rst = blocks["restore"]
@@ -2105,6 +2504,15 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
         raise AssertionError("durable: the restored store differs from the crashed one")
     if served.inc.store.n_nodes() > crashed.store.n_nodes():
         raise AssertionError("durable: the restored store holds more nodes than the crashed")
+    prov = blocks["provenance"]
+    if loaded != [True]:
+        raise AssertionError(f"durable: the restore loaded its sidecar {loaded}")
+    if prov["records"] <= sidecar_records:
+        raise AssertionError(f"durable: {prov['records']} records after the replayed batch, "
+                             f"{sidecar_records} in the sidecar")
+    if len(prov["explanations"]) != SERVE_EXPLAINS or not all(
+            e["found"] and e["verified"] for e in prov["explanations"]):
+        raise AssertionError(f"durable: explanations {prov['explanations']}")
     out.update({
         "restore_wall_s": restore_wall,
         "restore_s": rst["seconds"],
@@ -2117,6 +2525,11 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
         "verified_facts": blocks["live-verify"]["facts"],
         "restore_launches": ops.launch_counts(),
         "restore_largest_launch": ops.largest_launches(),
+        "provenance": {"crashed_records": crashed_records[0],
+                       "sidecar_records": sidecar_records,
+                       "restored_records": prov["records"],
+                       "journal_bytes": prov["journal_bytes"],
+                       "explanations": prov["explanations"], "hot_rules": prov["hot_rules"]},
     })
     log(f"[durable] {' '.join(argv)}: {out}")
     log(f"[durable] [restore] warm start from epoch {DURABLE_EVERY}, 1 WAL batch replayed, "
@@ -2124,7 +2537,9 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
         f"checkpoint {out['checkpoint_s']:.3f} s, snapshot {out['snapshot_disk_bytes']} B; "
         f"restore {out['restore_snapshot_s']:.3f} s + replay {out['restore_replay_s']:.3f} s "
         f"against the cold load + materialise {out['load_s']:.3f} s; restore syncs "
-        f"{out['restore_syncs']}")
+        f"{out['restore_syncs']}; provenance.json in snap-{DURABLE_EVERY} "
+        f"({sidecar_records} records) loaded by the restore, {SERVE_EXPLAINS} "
+        f"explanations after the replayed batch verified")
     del served, crashed
     return out
 
@@ -2152,6 +2567,13 @@ def run_mvcc(tmp: Path) -> dict:
     st = served.tier.stats()
     if "restore" not in blocks or served.recovery is None:
         raise AssertionError("mvcc: no warm start")
+    from repro_torch.obs.provenance import get_journal
+
+    # the snapshot it started from holds a sidecar; the journal is off here
+    if not (Path(served.recovery.snapshot) / "provenance.json").is_file() or (
+            get_journal().records):
+        raise AssertionError("mvcc: a sidecar was loaded with the journal off, or none "
+                             "was there")
     if st["stale_reads"] or blocks["serving"]["stale_reads"]:
         raise AssertionError(f"mvcc: {st['stale_reads']} stale reads")
     if not blocks["live-verify"]["ok"]:
@@ -2481,7 +2903,10 @@ def main() -> int:
         raise AssertionError("full run: fact set differs from flat_seminaive")
     log("[full] fact set equals flat_seminaive")
     query = run_queries(full["engine"], oracle, dictionary)
-    del full["engine"], oracle
+    del full["engine"]
+    torch.cuda.empty_cache()
+    prov = run_provenance(program, dataset, full, oracle)
+    del oracle
     torch.cuda.empty_cache()
 
     check_small_distributed()
@@ -2562,12 +2987,16 @@ def main() -> int:
 
     syncs = count_syncs(program, dataset)
     log(f"[syncs] host synchronisations in load + materialise: {syncs}")
+    if prov["syncs_journal_off"] != syncs:
+        raise AssertionError(f"provenance: {prov['syncs_journal_off']} syncs with the journal "
+                             f"off, {syncs} here")
     if args.profile:
         profile_run(program, dataset, dictionary)
 
     paths = {
         "cmat": full["launches"],
         "query": query["launches"],
+        "provenance": prov["launches"],
         "distributed": dist["launches"],
         "distributed_apply": dist["apply_launches"],
         "closure": closure["launches"],

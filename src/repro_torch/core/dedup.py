@@ -87,13 +87,16 @@ def elim_dup(
     round_tag: int,
     inplace_splits: bool = False,
     index=None,
+    fresh_counts: dict[str, list[int]] | None = None,
 ) -> list[MetaFact]:
     """Return meta-facts for every candidate fact not already in ``M``.
 
     ``candidates`` maps predicate -> list of (column ids, length).  With
     ``index`` (a :class:`DedupIndex` or ``FactBuffers``) the anti-join
     runs against the persistent sorted index instead of re-unfolding
-    ``M`` each round."""
+    ``M`` each round.  With ``fresh_counts``, each candidate group's
+    survivor count is appended to ``fresh_counts[pred]`` in candidate
+    order (provenance attribution; the counts are host ints already)."""
     delta: list[MetaFact] = []
     for pred, cand in candidates.items():
         if not cand:
@@ -122,6 +125,8 @@ def elim_dup(
             keep = not_in_m & first_occurrence_mask(codes_new)
 
         kept = segment_counts(keep, [length for _, length in cand])
+        if fresh_counts is not None:
+            fresh_counts.setdefault(pred, []).extend(kept)
         # each distinct column id is split once (a head like ``P(x, x)``
         # repeats one id)
         for item in split_survivors(store, cand, keep, kept, inplace_splits):

@@ -27,10 +27,16 @@ partition out of its buffer instead of masking the whole capacity.  The
 codes are the reference's int32 16-bit-halves pairs, so constants must lie
 in ``[0, MAX_DIST_CONST)``.
 
+With the derivation journal on (:mod:`repro_torch.obs.provenance`), each
+round records its schedule (one ``schedule`` record per ``(rule, pivot)``)
+and each predicate's growth (an ``apply`` record tagged with its shard),
+read from the host counts the round already holds; the DRed phases record
+their overdeleted and rederived rows, and :meth:`check_integrity` merges
+the shard records.
+
 Not ported: several shards (a later slice takes them through
 ``torch.distributed`` ``all_to_all_single``; ``ROADMAP.md`` queue 1 item
-11), ``abstract_round`` (an XLA lowering hook with no torch twin) and the
-provenance hooks.
+11) and ``abstract_round`` (an XLA lowering hook with no torch twin).
 """
 
 from __future__ import annotations
@@ -279,6 +285,51 @@ class DistributedEngine:
         self._rule_ids: dict = {}
         for k, rule in enumerate(program):
             self._rule_ids.setdefault(rule, k)
+        self._pjournal = None  # bound per materialise/apply when enabled
+
+    def _record_dist(
+        self,
+        kind: str,
+        pred: str,
+        *,
+        stratum: int = -1,
+        round_no: int = 0,
+        rule_id: int = -1,
+        pivot: int = -1,
+        n_new: int = 0,
+        shard: int = -1,
+    ) -> None:
+        """Journal one host-visible event (no-op when recording is off):
+        per-shard growth records carry the shard tag and are merged at
+        :meth:`check_integrity`; schedule records carry the rule lineage
+        (the round's device work has no per-rule emit counts)."""
+        j = self._pjournal
+        if j is None:
+            return
+        from ..obs.provenance import DerivationRecord
+
+        j.record(DerivationRecord(
+            kind=kind,
+            engine="dist",
+            stratum=stratum,
+            round=round_no,
+            rule_id=rule_id,
+            pivot=pivot,
+            pred=pred,
+            n_new=int(n_new),
+            shard=int(shard),
+            epoch=j.epoch,
+        ))
+
+    def _bind_journal(self, epoch: int | None = None) -> None:
+        from ..obs.provenance import get_journal
+
+        journal = get_journal()
+        self._pjournal = journal if journal.enabled else None
+        if self._pjournal is not None:
+            if epoch is not None:
+                self._pjournal.begin_epoch(epoch)
+            self._pjournal.attach_program(self.program)
 
     # -------------------------------------------------------------- #
     # routing (one shard: every row stays, in order)
@@ -688,6 +739,10 @@ class DistributedEngine:
                 rule_ids = sorted({
                     self._rule_ids.get(rule, -1) for rule, _p, _pl in pairs
                 })
+                # counts are host ints: the growth records read no device
+                counts_before = (
+                    dict(self._counts) if self._pjournal is not None else None
+                )
                 with span(
                     "dist.round",
                     round=round_no,
@@ -697,6 +752,21 @@ class DistributedEngine:
                 ) as sp:
                     total_new, joined = self._mat_round(pairs)
                     sp.set(new_facts=total_new, rows_joined=joined)
+                if counts_before is not None:
+                    for rule, pivot, _plan in pairs:
+                        self._record_dist(
+                            "schedule", rule.head.predicate,
+                            stratum=si, round_no=round_no,
+                            rule_id=self._rule_ids.get(rule, -1),
+                            pivot=-1 if pivot is None else pivot,
+                        )
+                    for p in self._preds:
+                        grow = self._counts[p] - counts_before[p]
+                        if grow:
+                            self._record_dist(
+                                "apply", p, stratum=si, round_no=round_no,
+                                n_new=grow, shard=0,
+                            )
                 rounds += 1
                 self.stats.n_rule_applications += len(pairs)
                 self.stats.per_round.append(
@@ -779,6 +849,7 @@ class DistributedEngine:
         (sorted unique int64 tensors, empty predicates included)."""
         self._prepare(dataset)
         self.stats = DistributedStats()
+        self._bind_journal()
         strata = (
             stratify(self.program) if self.seminaive else [list(self.program)]
         )
@@ -802,6 +873,8 @@ class DistributedEngine:
         self.stats.rounds = rounds
         self.stats.plan_cache = self._plan_cache.counters()
         publish_distributed(self.stats)
+        if self._pjournal is not None:
+            self._pjournal.publish()
         return {p: self._pull(*self._state[p][:2]) for p in self._preds}
 
     @staticmethod
@@ -873,6 +946,7 @@ class DistributedEngine:
         t0 = time.perf_counter()
         st = DistributedStats()
         self.stats = st
+        self._bind_journal(self.epoch + 1)
         adds = normalise_batch(additions)
         dels = normalise_batch(deletions)
         unknown = (set(adds) | set(dels)) - set(self._preds)
@@ -911,6 +985,8 @@ class DistributedEngine:
         st.plan_cache = self._plan_cache.counters()
         st.time_total = time.perf_counter() - t0
         publish_distributed(st)
+        if self._pjournal is not None:
+            self._pjournal.publish()
         return st
 
     def _deletion_sweep(self, dels: dict[str, torch.Tensor], st) -> None:
@@ -936,6 +1012,9 @@ class DistributedEngine:
             n_over = sum(int(r.shape[0]) for r in over.values())
             st.n_overdeleted += n_over
             sp.set(n_overdeleted=n_over)
+            for pred, rows in over.items():
+                if rows.shape[0]:
+                    self._record_dist("overdelete", pred, n_new=rows.shape[0])
 
         # --- delete: drop overdeleted rows ----------------------------- #
         with span("dist.delete"):
@@ -972,6 +1051,9 @@ class DistributedEngine:
             n_restored = sum(int(r.shape[0]) for r in restored.values())
             st.n_rederived += n_restored
             sp.set(n_rederived=n_restored)
+            for pred, rows in restored.items():
+                if rows.shape[0]:
+                    self._record_dist("rederive", pred, n_new=rows.shape[0])
 
             # --- fold restorations back into the base partitions ------- #
             if n_restored:
@@ -1073,7 +1155,10 @@ class DistributedEngine:
     def check_integrity(self, host) -> None:
         """Differentially compare the materialisation against another
         engine maintained with the same batches (any object with
-        ``to_dict()``, or a plain ``{pred: rows}`` dict)."""
+        ``to_dict()``, or a plain ``{pred: rows}`` dict); with the journal
+        on, the shard records are merged first."""
+        if self._pjournal is not None:
+            self._pjournal.merge_shard_records()
         want = host.to_dict() if hasattr(host, "to_dict") else dict(host)
         got = self.to_dict()
         want = {p: r for p, r in want.items() if len(r)}

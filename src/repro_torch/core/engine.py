@@ -169,6 +169,15 @@ class CMatEngine:
             from .dedup import DedupIndex
 
             self._dedup_index = DedupIndex() if dedup_index else None
+        # rule ids are program positions (shared by every engine and the
+        # provenance journal); duplicates keep their first position
+        self._rule_ids: dict[Rule, int] = {}
+        for k, rule in enumerate(program):
+            self._rule_ids.setdefault(rule, k)
+        self._journal = None  # bound per materialise when recording is on
+        #: the Explainer's tables, built at the first ``explain_fact`` and
+        #: dropped by every mutation (``load``, ``materialise``)
+        self._prov_tables = None
         register_reporter("cmat", self)
 
     def memory_report(self) -> dict[str, int]:
@@ -194,6 +203,7 @@ class CMatEngine:
         """Compress the explicit dataset (numpy arrays or tensors, moved
         to the engine's device) into meta-facts (Alg. 1 lines 1-4)."""
         t0 = time.perf_counter()
+        self._prov_tables = None
         for pred, rows in dataset.items():
             rows = torch.as_tensor(rows, dtype=_I64).to(self.device)
             if rows.dim() == 1:
@@ -212,6 +222,13 @@ class CMatEngine:
         strata in dependency order; the first round of a stratum evaluates
         every rule over all facts, later rounds are delta-restricted."""
         t_start = time.perf_counter()
+        from ..obs.provenance import get_journal
+
+        journal = get_journal()
+        self._journal = journal if journal.enabled else None
+        if self._journal is not None:
+            journal.attach_program(self.program)
+        self._prov_tables = None
         strata = (
             stratify(self.program)
             if self.stratify_program
@@ -267,6 +284,8 @@ class CMatEngine:
         self.stats.plan_cache = self.plan_cache.counters()
         self.stats.time_total = time.perf_counter() - t_start
         publish_materialisation(self.stats)
+        if self._journal is not None:
+            self._journal.publish()
         return self.stats
 
     # ------------------------------------------------------------------ #
@@ -283,6 +302,9 @@ class CMatEngine:
         match_cache: dict = {}
         n_apps = 0
         n_skipped = 0
+        # provenance: one pending entry per rule application, resolved
+        # into records once dedup has counted the survivors
+        prov: list[dict] | None = [] if self._journal is not None else None
         self._stats_view.refresh()
         if naive:
             delta_preds = {p for p in facts.predicates() if facts.all(p)}
@@ -328,9 +350,11 @@ class CMatEngine:
                     and plan.joins[-1].kind == "xjoin"
                     and len(rule.head.terms) <= 2
                 )
+                rid = self._rule_ids.get(rule, -1)
+                t_app = time.perf_counter_ns() if prov is not None else 0
                 with span(
                     "cmat.rule", head=rule.head.predicate, pivot=i,
-                    stratum=stratum_idx,
+                    rule_id=rid, stratum=stratum_idx,
                 ):
                     if fused_tail:
                         result = self._eval_plan_fused(
@@ -340,9 +364,19 @@ class CMatEngine:
                         if isinstance(result, torch.Tensor):
                             if result.shape[0]:
                                 n_apps += 1
-                                flat_candidates.setdefault(
-                                    rule.head.predicate, []
-                                ).append(result)
+                                pred = rule.head.predicate
+                                if prov is not None:
+                                    prov.append({
+                                        "rule_id": rid,
+                                        "pivot": -1 if naive else i,
+                                        "pred": pred,
+                                        "path": "flat",
+                                        "block": len(flat_candidates.get(pred, [])),
+                                        "n_emitted": int(result.shape[0]),
+                                        "in_ids": self._pivot_mf_ids(rule, i, naive),
+                                        "time_ns": time.perf_counter_ns() - t_app,
+                                    })
+                                flat_candidates.setdefault(pred, []).append(result)
                             continue
                         # wide join fell back to the structure-shared path
                     else:
@@ -352,14 +386,32 @@ class CMatEngine:
                 if result is None or result.is_empty():
                     continue
                 n_apps += 1
+                pred = rule.head.predicate
+                g0 = len(candidates.get(pred, []))
                 self._emit_head(rule, result, candidates)
+                if prov is not None:
+                    groups = candidates.get(pred, [])[g0:]
+                    prov.append({
+                        "rule_id": rid,
+                        "pivot": -1 if naive else i,
+                        "pred": pred,
+                        "path": "mu",
+                        "groups": (g0, g0 + len(groups)),
+                        "n_emitted": int(sum(ln for _, ln in groups)),
+                        "in_ids": self._pivot_mf_ids(rule, i, naive),
+                        "time_ns": time.perf_counter_ns() - t_app,
+                    })
 
         t0 = time.perf_counter()
+        fresh_mu: dict[str, list[int]] | None = {} if prov is not None else None
+        fresh_flat: dict[str, torch.Tensor] | None = {} if prov is not None else None
         with span("cmat.dedup", round=round_no):
             delta = elim_dup(candidates, facts, store, round_no,
-                             self.inplace_splits, index=self._dedup_index)
+                             self.inplace_splits, index=self._dedup_index,
+                             fresh_counts=fresh_mu)
             if flat_candidates:
-                delta.extend(self._dedup_flat(flat_candidates, round_no))
+                delta.extend(self._dedup_flat(flat_candidates, round_no,
+                                              fresh_counts=fresh_flat))
         self.stats.time_dedup += time.perf_counter() - t0
 
         # Alg. 1 line 23: re-compress length-one meta-facts
@@ -370,6 +422,8 @@ class CMatEngine:
 
         for mf in delta:
             facts.add(mf)
+        if prov:
+            self._record_round(prov, fresh_mu, fresh_flat, delta, round_no, stratum_idx)
         self.stats.n_rule_applications += n_apps
         self.stats.rule_applications_skipped += n_skipped
         return {
@@ -563,13 +617,77 @@ class CMatEngine:
                 cols.append(r_cols[t][r_sel])
         return torch.stack(cols, dim=1)
 
+    def _pivot_mf_ids(self, rule: Rule, pivot: int, naive: bool) -> tuple:
+        """Input lineage of one application: the meta-fact ids of the
+        pivot predicate's source partition (capped)."""
+        pred = rule.body[pivot].predicate
+        mfs = self.facts.all(pred) if naive else self.facts.delta(pred)
+        return tuple(mf.mf_id for mf in mfs[:16])
+
+    def _record_round(
+        self,
+        prov: list[dict],
+        fresh_mu: dict[str, list[int]] | None,
+        fresh_flat: dict[str, torch.Tensor] | None,
+        delta: list[MetaFact],
+        round_no: int,
+        stratum_idx: int,
+    ) -> None:
+        """Resolve the round's pending applications into journal records:
+        dedup's per-group (host) and per-block (device, read here in one
+        transfer) survivor counts give each record its ``n_new``; the
+        stored delta gives output meta-fact ids per head predicate."""
+        from ..obs.provenance import DerivationRecord
+
+        flat_counts: dict[str, list[int]] = {}
+        if fresh_flat:
+            preds = list(fresh_flat)
+            sizes = [int(fresh_flat[p].shape[0]) for p in preds]
+            every = torch.cat([fresh_flat[p] for p in preds]).tolist()
+            off = 0
+            for p, n in zip(preds, sizes):
+                flat_counts[p] = every[off:off + n]
+                off += n
+        out_ids: dict[str, list[int]] = {}
+        for mf in delta:
+            out_ids.setdefault(mf.predicate, []).append(mf.mf_id)
+        for p in prov:
+            pred = p["pred"]
+            if p["path"] == "mu":
+                g0, g1 = p["groups"]
+                n_new = int(sum((fresh_mu or {}).get(pred, [])[g0:g1]))
+            else:
+                counts = flat_counts.get(pred, [])
+                b = p["block"]
+                n_new = int(counts[b]) if b < len(counts) else 0
+            self._journal.record(DerivationRecord(
+                kind="apply",
+                engine="cmat",
+                stratum=stratum_idx,
+                round=round_no,
+                rule_id=p["rule_id"],
+                pivot=p["pivot"],
+                pred=pred,
+                n_emitted=p["n_emitted"],
+                n_new=n_new,
+                in_mf_ids=p["in_ids"],
+                out_mf_ids=tuple(out_ids.get(pred, [])[:16]),
+                epoch=self._journal.epoch,
+                time_ns=p["time_ns"],
+            ))
+
     def _dedup_flat(
-        self, flat_candidates: dict[str, list[torch.Tensor]], round_no: int
+        self,
+        flat_candidates: dict[str, list[torch.Tensor]],
+        round_no: int,
+        fresh_counts: dict[str, torch.Tensor] | None = None,
     ) -> list[MetaFact]:
         """Dedup the round's flat head rows against the persistent
         ``FactBuffers`` index (already updated by :func:`elim_dup` with
         this round's meta-fact survivors) and compress only the
-        genuinely-new rows, once per predicate."""
+        genuinely-new rows, once per predicate.  With ``fresh_counts``,
+        each block's survivor count is stored per predicate as a device
+        tensor (no host read here)."""
         delta: list[MetaFact] = []
         rows_in = rows_fresh = 0
         with span(
@@ -581,6 +699,11 @@ class CMatEngine:
                 keep = self._dedup_index.fresh_mask(pred, rows)
                 if keep is None:  # the fused-tail gate guarantees arity <= 2
                     raise RuntimeError("fused tail emitted unpackable arity")
+                if fresh_counts is not None:
+                    fresh_counts[pred] = torch.stack([
+                        part.sum() for part in
+                        torch.split(keep, [int(b.shape[0]) for b in blocks])
+                    ])
                 fresh = rows[keep]
                 if fresh.shape[0] == 0:
                     continue
@@ -599,6 +722,20 @@ class CMatEngine:
         return compile_body(
             rule.body, self._stats_view, pivot=pivot, reorder=self.plan_bodies
         ).explain()
+
+    def explain_fact(self, pred: str, terms, decode=None) -> dict | None:
+        """Verified proof tree for a materialised fact
+        (:mod:`repro_torch.obs.provenance`): explicit facts are leaves,
+        derived facts are re-derived step by step with the journal as a
+        search accelerator.  The tables are kept until the next
+        ``load`` or ``materialise``."""
+        from ..obs.provenance import Explainer, get_journal
+
+        if self._prov_tables is None:
+            self._prov_tables = Explainer.build_tables(self.facts)
+        ex = Explainer(self.program, self._prov_tables, self._explicit,
+                       journal=get_journal(), decode=decode)
+        return ex.explain(pred, terms)
 
     # ------------------------------------------------------------------ #
     def _emit_head(self, rule: Rule, L: SubstSet, candidates: dict) -> None:

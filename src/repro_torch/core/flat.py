@@ -132,6 +132,14 @@ class FlatEngine:
         self.facts: dict[str, torch.Tensor] = {}
         self.rounds = 0
         self.time_total = 0.0
+        self._rule_ids: dict[Rule, int] = {}
+        for k, rule in enumerate(program):
+            self._rule_ids.setdefault(rule, k)
+        self._journal = None  # bound per materialise when recording is on
+        # provenance: per-predicate (round, fresh rows) log, the flat
+        # engine's round tags (its tables carry no per-row round)
+        self._prov_fresh: dict[str, list[tuple[int, torch.Tensor]]] = {}
+        self._explicit: dict[str, torch.Tensor] = {}
         register_reporter("flat", self)
 
     def memory_report(self) -> dict[str, int]:
@@ -146,9 +154,17 @@ class FlatEngine:
             if rows.dim() == 1:
                 rows = rows.reshape(-1, 1)
             self.facts[pred] = unique_rows(rows)
+            self._explicit[pred] = self.facts[pred]
 
     def materialise(self) -> dict[str, torch.Tensor]:
         t0 = time.perf_counter()
+        from ..obs.provenance import get_journal
+
+        journal = get_journal()
+        self._journal = journal if journal.enabled else None
+        if self._journal is not None:
+            journal.attach_program(self.program)
+            self._prov_fresh = {p: [(0, r)] for p, r in self.facts.items()}
         delta = dict(self.facts)
         rounds = 0
         with span("flat.materialise"):
@@ -157,17 +173,41 @@ class FlatEngine:
                 with span("flat.round", round=rounds):
                     stats_view = ArrayStats(self.facts)
                     derived: dict[str, list[torch.Tensor]] = {}
+                    pending: list[dict] = []
                     for rule in self.program:
                         for i in range(len(rule.body)):
+                            t_app = (
+                                time.perf_counter_ns()
+                                if self._journal is not None
+                                else 0
+                            )
                             rows = self._eval(rule, i, delta, stats_view)
                             if rows is not None and rows.shape[0]:
+                                if self._journal is not None:
+                                    pending.append({
+                                        "rule_id": self._rule_ids.get(rule, -1),
+                                        "pivot": i,
+                                        "pred": rule.head.predicate,
+                                        "rows": rows,
+                                        "time_ns": time.perf_counter_ns() - t_app,
+                                    })
                                 derived.setdefault(
                                     rule.head.predicate, []
                                 ).append(rows)
+                    watermarks = (
+                        {
+                            p: int(self.facts[p].shape[0]) if p in self.facts else 0
+                            for p in derived
+                        }
+                        if self._journal is not None
+                        else {}
+                    )
                     if self.fused:
                         delta = self._absorb_fused(derived)
                     else:
                         delta = self._absorb_per_step(derived)
+                    if self._journal is not None:
+                        self._record_round(pending, delta, watermarks, rounds)
         self.rounds = rounds
         self.time_total = time.perf_counter() - t0
         reg = get_registry()
@@ -175,7 +215,65 @@ class FlatEngine:
         reg.counter("flat.time_total").inc(self.time_total)
         if self.fused:
             reg.counter("flat.fused_rounds").inc(rounds)
+        if self._journal is not None:
+            self._journal.publish()
         return self.facts
+
+    def _record_round(
+        self,
+        pending: list[dict],
+        fresh: dict[str, torch.Tensor],
+        watermarks: dict[str, int],
+        round_no: int,
+    ) -> None:
+        """Resolve the round's rule applications into journal records:
+        ``n_new`` credits each application with the fresh rows it emitted
+        (co-deriving rules both get credit); ``row_span`` carries the
+        predicate's table watermarks across the absorb."""
+        from ..obs.provenance import DerivationRecord
+
+        for pred, rows in fresh.items():
+            self._prov_fresh.setdefault(pred, []).append((round_no, rows))
+        for p in pending:
+            pred = p["pred"]
+            f = fresh.get(pred)
+            if f is None or f.shape[0] == 0:
+                n_new = 0
+            else:
+                n_new = int(_member(f, p["rows"]).sum())
+            after = self.facts.get(pred)
+            self._journal.record(DerivationRecord(
+                kind="apply",
+                engine="flat",
+                stratum=-1,  # the flat oracle runs unstratified
+                round=round_no,
+                rule_id=p["rule_id"],
+                pivot=p["pivot"],
+                pred=pred,
+                n_emitted=int(p["rows"].shape[0]),
+                n_new=n_new,
+                row_span=(
+                    watermarks.get(pred, 0),
+                    0 if after is None else int(after.shape[0]),
+                ),
+                epoch=self._journal.epoch,
+                time_ns=p["time_ns"],
+            ))
+
+    def explain_fact(self, pred: str, terms, decode=None) -> dict | None:
+        """Verified proof tree over the flat materialisation (the
+        per-round fresh log gives round tags when recording was on;
+        without it every fact is at round 0 and recursive explanations
+        may be unavailable)."""
+        from ..obs.provenance import Explainer, get_journal
+
+        ex = Explainer.from_flat(
+            self.program, self.facts,
+            fresh_log=self._prov_fresh or None,
+            explicit=self._explicit,
+            journal=get_journal(), decode=decode,
+        )
+        return ex.explain(pred, terms)
 
     def _absorb_per_step(self, derived: dict) -> dict[str, torch.Tensor]:
         """Round tail by re-sorting: unique candidates, anti-join, then

@@ -71,6 +71,8 @@ def dred_stratum(inc, stratum, seeds, head_dels, st) -> dict[str, torch.Tensor]:
         sp.set(n_overdeleted=sum(int(r.shape[0]) for r in over.values()))
     if not over:
         return {}
+    for pred, rows in over.items():
+        inc.record_provenance("overdelete", pred, n_new=rows.shape[0])
     t0 = time.perf_counter()
     with span("dred.delete"):
         missing: dict[str, torch.Tensor] = {}
@@ -87,6 +89,10 @@ def dred_stratum(inc, stratum, seeds, head_dels, st) -> dict[str, torch.Tensor]:
             delta_mfs[pred] = inc.add_rows(pred, back)
             missing[pred] = setdiff_rows(missing[pred], back)
             st.n_rederived += int(back.shape[0])
+            inc.record_provenance(
+                "survive_explicit", pred,
+                n_new=back.shape[0], out_mfs=delta_mfs[pred],
+            )
 
         def current(pred: str, src: str = "") -> list:
             return facts.all(pred)
@@ -117,6 +123,12 @@ def dred_stratum(inc, stratum, seeds, head_dels, st) -> dict[str, torch.Tensor]:
                 delta_mfs.setdefault(pred, []).extend(mfs)
                 missing[pred] = setdiff_rows(miss, back)
                 st.n_rederived += int(back.shape[0])
+                inc.record_provenance(
+                    "survive_backward", pred,
+                    rule_id=inc._rule_ids.get(rule, -1),
+                    n_emitted=rows.shape[0], n_new=back.shape[0],
+                    out_mfs=mfs,
+                )
 
         # --- forward pass: restorations propagate semi-naively -------- #
         while delta_mfs:
@@ -155,6 +167,11 @@ def dred_stratum(inc, stratum, seeds, head_dels, st) -> dict[str, torch.Tensor]:
                     new_delta[pred] = inc.add_rows(pred, back)
                     missing[pred] = setdiff_rows(missing[pred], back)
                     st.n_rederived += int(back.shape[0])
+                    inc.record_provenance(
+                        "rederive", pred,
+                        n_emitted=cand.shape[0], n_new=back.shape[0],
+                        out_mfs=new_delta[pred],
+                    )
             delta_mfs = new_delta
         rede.set(
             n_missing=sum(int(m.shape[0]) for m in missing.values())

@@ -210,6 +210,15 @@ class IncrementalStore:
         self.publish_hooks: list = []
         # per-apply pre-update meta-fact snapshots (read by the phases)
         self.pre_mfs: dict[str, list] = {}
+        # provenance (repro_torch.obs.provenance, distinct from the
+        # maintenance journal above): bound per apply when recording is on
+        self._pjournal = None
+        self._cur_stratum = -1
+        self._rule_ids = self.engine._rule_ids  # program positions
+        #: the Explainer's tables, built at the first ``explain_fact`` and
+        #: dropped by every mutation (``load``, ``apply``, ``compact``; a
+        #: restore builds a new store)
+        self._prov_tables = None
         # the store reports its side structures only; the ColumnStore
         # registers itself
         register_reporter("inc", self)
@@ -221,6 +230,7 @@ class IncrementalStore:
         """Compress and materialise the initial KB, then build the row
         index and derivation-count columns."""
         dataset = normalise_batch(dataset, self.device)
+        self._drop_explain_tables()
         for pred, rows in dataset.items():
             self.explicit[pred] = rows
             self.arities.setdefault(pred, int(rows.shape[1]))
@@ -338,6 +348,14 @@ class IncrementalStore:
         additions of already-explicit facts are ignored."""
         t_start = time.perf_counter()
         st = IncrementalStats()
+        self._drop_explain_tables()
+        from ..obs.provenance import get_journal
+
+        pj = get_journal()
+        self._pjournal = pj if pj.enabled else None
+        if self._pjournal is not None:
+            self._pjournal.begin_epoch(self.epoch + 1)
+            self._pjournal.attach_program(self.program)
         adds = normalise_batch(additions, self.device)
         dels = normalise_batch(deletions, self.device)
         if self.wal is not None:
@@ -394,6 +412,8 @@ class IncrementalStore:
         )
         st.journal_bytes = self.journal_bytes()
         publish_incremental(st)
+        if self._pjournal is not None:
+            self._pjournal.publish()
         for cb in self.publish_hooks:
             cb(self, st)
         return st
@@ -406,11 +426,40 @@ class IncrementalStore:
         if cb in self.publish_hooks:
             self.publish_hooks.remove(cb)
 
-    def record_provenance(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "the derivation journal is not ported yet; provenance is a later "
-            "slice (ROADMAP.md queue 1 item 9)"
-        )
+    def record_provenance(
+        self,
+        kind: str,
+        pred: str,
+        *,
+        n_emitted: int = 0,
+        n_new: int = 0,
+        rule_id: int = -1,
+        out_mfs=(),
+        time_ns: int = 0,
+    ) -> None:
+        """Journal one maintenance-phase step (no-op unless recording is
+        on).  The DRed phases call this to answer why a fact survived:
+        ``survive_explicit`` / ``survive_backward`` / ``rederive`` records
+        carry the restoring rule and the restored meta-facts."""
+        j = self._pjournal
+        if j is None:
+            return
+        from ..obs.provenance import DerivationRecord
+
+        j.record(DerivationRecord(
+            kind=kind,
+            engine="inc",
+            stratum=self._cur_stratum,
+            round=self._round,
+            rule_id=rule_id,
+            pivot=-1,
+            pred=pred,
+            n_emitted=int(n_emitted),
+            n_new=int(n_new),
+            out_mf_ids=tuple(mf.mf_id for mf in list(out_mfs)[:16]),
+            epoch=j.epoch,
+            time_ns=time_ns,
+        ))
 
     # ------------------------------------------------------------------ #
     # deletion sweep
@@ -429,14 +478,16 @@ class IncrementalStore:
                 self.delete_rows(pred, rows)
                 removed[pred] = rows
                 st.n_deleted += int(rows.shape[0])
+                self.record_provenance("delete_explicit", pred, n_new=rows.shape[0])
         st.time_delete += time.perf_counter() - t0
 
-        for stratum in self.strata:
+        for s_idx, stratum in enumerate(self.strata):
             stratum_heads, body_preds = stratum_predicates(stratum)
             seeds = {p: removed[p] for p in body_preds if p in removed}
             head_dels = {p: dels[p] for p in stratum_heads if p in dels}
             if not seeds and not head_dels:
                 continue
+            self._cur_stratum = s_idx
             self.stats_view.refresh()
             if self.counting and not is_recursive(stratum):
                 with span("inc.counting_delete", rules=len(stratum)):
@@ -507,6 +558,9 @@ class IncrementalStore:
                 self.delete_rows(pred, dead)
                 net[pred] = dead
                 st.n_deleted += int(dead.shape[0])
+            self.record_provenance(
+                "count_delete", pred, n_emitted=uniq.shape[0], n_new=dead.shape[0]
+            )
         st.time_counting += time.perf_counter() - t0
         return net
 
@@ -527,15 +581,20 @@ class IncrementalStore:
         for pred, rows in adds.items():
             if pred in self._head_preds:
                 continue  # handled by the predicate's stratum
-            note_added(pred, rows, self.add_rows(pred, rows))
+            mfs = self.add_rows(pred, rows)
+            note_added(pred, rows, mfs)
+            self.record_provenance(
+                "insert_explicit", pred, n_new=rows.shape[0], out_mfs=mfs
+            )
 
-        for stratum in self.strata:
+        for s_idx, stratum in enumerate(self.strata):
             stratum_heads, body_preds = stratum_predicates(stratum)
             seeds = {p: added_mfs[p] for p in body_preds if p in added_mfs}
             seed_rows = {p: added[p] for p in body_preds if p in added}
             head_adds = {p: adds[p] for p in stratum_heads if p in adds}
             if not seeds and not head_adds:
                 continue
+            self._cur_stratum = s_idx
             self.stats_view.refresh()
             if self.counting and not is_recursive(stratum):
                 with span("inc.counting_insert", rules=len(stratum)):
@@ -568,6 +627,10 @@ class IncrementalStore:
                 fresh = uniq[~present]
                 mfs = self.add_rows(pred, fresh, counts=gained[~present])
                 note_added(pred, fresh, mfs)
+                self.record_provenance(
+                    "insert", pred, n_emitted=uniq.shape[0], n_new=fresh.shape[0],
+                    out_mfs=mfs,
+                )
         st.time_counting += time.perf_counter() - t0
 
     def _seminaive_insert(self, stratum, seeds, head_adds, st, note_added):
@@ -611,6 +674,11 @@ class IncrementalStore:
                         continue
                     rows, _ = project_head(rule.head, L, self.store)
                     derived.setdefault(rule.head.predicate, []).append(rows)
+                    self.record_provenance(
+                        "apply", rule.head.predicate,
+                        rule_id=self._rule_ids.get(rule, -1),
+                        n_emitted=rows.shape[0],
+                    )
             self.store.release(mark)
 
             new_delta: dict[str, list] = {}
@@ -621,6 +689,10 @@ class IncrementalStore:
                     mfs = self.add_rows(pred, fresh)
                     new_delta[pred] = mfs
                     note_added(pred, fresh, mfs)
+                    self.record_provenance(
+                        "insert", pred, n_emitted=cand.shape[0],
+                        n_new=fresh.shape[0], out_mfs=mfs,
+                    )
             delta_mfs = new_delta
 
     # ------------------------------------------------------------------ #
@@ -679,6 +751,7 @@ class IncrementalStore:
         from ..storage.compact import compact_store
 
         self._gc_usage = None
+        self._drop_explain_tables()
         return compact_store(self)
 
     def maybe_compact(self, threshold: float = 0.5, min_nodes: int = 256,
@@ -718,11 +791,25 @@ class IncrementalStore:
         """Flat per-predicate materialisation (sorted unique rows)."""
         return self.rows.to_dict()
 
-    def explain_fact(self, pred: str, terms, decode=None):
-        raise NotImplementedError(
-            "proof trees need the derivation journal, which is not ported "
-            "yet (ROADMAP.md queue 1 item 9)"
-        )
+    def explain_fact(self, pred: str, terms, decode=None) -> dict | None:
+        """Verified proof tree for a maintained fact
+        (:mod:`repro_torch.obs.provenance`): works on a loaded, updated or
+        restored store (rounds persist through snapshots; the journal is
+        only a search accelerator).  The tables are kept until the next
+        mutation."""
+        from ..obs.provenance import Explainer, get_journal
+
+        if self._prov_tables is None:
+            self._prov_tables = Explainer.build_tables(self.facts)
+        ex = Explainer(self.program, self._prov_tables, self.explicit,
+                       journal=get_journal(), decode=decode)
+        return ex.explain(pred, terms)
+
+    def _drop_explain_tables(self) -> None:
+        """Forget the Explainer's tables (this store's and its engine's)
+        before a mutation."""
+        self._prov_tables = None
+        self.engine._prov_tables = None
 
     def check_integrity(self) -> None:
         """Test and debug invariants: the row index matches the unfolded

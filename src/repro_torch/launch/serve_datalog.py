@@ -43,10 +43,16 @@ update batch also goes through its ``apply``.  ``--mvcc`` and
 Everything runs on ``--device`` (default ``cuda``; without a card the
 server raises, it never falls back).  On a card the hand kernels run, on
 the CPU their plain versions; the ``[kernels]`` block reports the kernel
-facade's registry meter and the launch meter's per-kernel counts.  The
-provenance flags are not ported yet and exit with the ``ROADMAP.md`` item
-that will port them.  A failure in a server thread reaches the caller and
-a non-zero exit.
+facade's registry meter and the launch meter's per-kernel counts.
+
+``--provenance`` records the derivation journal
+(:mod:`repro_torch.obs.provenance`) through materialisation and updates;
+``--explain FACT`` (repeatable) and ``--explain-sample N`` add verified
+proof trees, built on the store's device, and ``--hot-rules`` the
+per-rule cost table (any of the three turns the journal on).  The
+``[provenance]`` block reports them; a rule's ``time_ns`` is host time,
+which on a card holds device time only where the rule waits for it.  A
+failure in a server thread reaches the caller and a non-zero exit.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from ..core.util import resolve_device, synchronize
 from ..incremental import IncrementalStore
 from ..kernels import ops
 from ..obs import (
+    get_journal,
     get_registry,
     get_tracer,
     publish_predicate_effectiveness,
@@ -199,6 +206,79 @@ def _rows_by_pred(items):
     return {p: np.asarray(r, dtype=np.int64) for p, r in out.items()}
 
 
+def _parse_fact_spec(spec: str, dictionary):
+    """``pred(t1, t2)`` -> ``(pred, (id1, id2))``; terms resolve through
+    the KB dictionary, falling back to raw integer ids."""
+    spec = spec.strip()
+    if "(" not in spec or not spec.endswith(")"):
+        raise ValueError(f"bad --explain spec {spec!r}; expected pred(term, term)")
+    pred, rest = spec.split("(", 1)
+    terms = []
+    for tok in rest[:-1].split(","):
+        tok = tok.strip().strip("'\"")
+        if dictionary is not None and tok in dictionary:
+            terms.append(dictionary.id_of(tok))
+        else:
+            terms.append(int(tok))
+    return pred.strip(), tuple(terms)
+
+
+def _proof_summary(node: dict) -> dict:
+    depth, n_nodes, all_verified = 0, 0, True
+    stack = [(node, 1)]
+    while stack:
+        nd, d = stack.pop()
+        n_nodes += 1
+        depth = max(depth, d)
+        all_verified = all_verified and bool(nd.get("verified"))
+        for child in nd.get("children", ()):
+            stack.append((child, d + 1))
+    return {"depth": depth, "nodes": n_nodes, "verified": all_verified}
+
+
+def _sample_derived(mat, explicit, n: int, seed: int):
+    """Up to ``n`` (pred, terms) pairs drawn from the materialisation
+    minus the explicit set, the JAX package's draw: the pool is counted
+    per predicate on the store's device (no list of its facts) and the
+    chosen pool positions are mapped back through the per-predicate
+    offsets."""
+    from ..core.util import multicol_member
+
+    preds, derived = [], []
+    for pred in sorted(mat):
+        rows = mat[pred]
+        rows = rows.reshape(rows.shape[0], -1)
+        keep = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+        exp = explicit.get(pred)
+        if exp is not None and exp.shape[0]:
+            exp = exp.reshape(exp.shape[0], -1)
+            if exp.shape[1] == rows.shape[1]:
+                keep = ~multicol_member(rows, exp.to(rows.device))
+        preds.append((pred, rows))
+        derived.append(keep)
+    if not preds:
+        return []
+    counts = torch.stack([k.sum() for k in derived]).tolist()
+    total = sum(counts)
+    if not total:
+        return []
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(total, size=min(n, total), replace=False)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    owner = np.searchsorted(offsets, idx, side="right") - 1
+    picked = {}
+    for k in sorted(set(owner.tolist())):
+        pred, rows = preds[k]
+        at = idx[owner == k] - offsets[k]
+        positions = torch.nonzero(derived[k]).flatten()
+        sel = positions[torch.as_tensor(at, device=positions.device)]
+        picked.update(zip(
+            (int(i) for i in idx[owner == k]),
+            ((pred, tuple(r)) for r in rows[sel].tolist()),
+        ))
+    return [picked[int(i)] for i in idx]
+
+
 def make_update_batches(dataset, n_updates: int, size: int, seed: int):
     """Rotating explicit-fact update batches: each batch deletes ``size``
     facts from a shuffled pool and re-inserts the batch deleted one
@@ -227,15 +307,6 @@ def make_update_batches(dataset, n_updates: int, size: int, seed: int):
 #: a micro-batch and a writer's apply and checkpoint, which take tens of
 #: seconds each at ``--scale 10000`` (the tier's own default is 60 s)
 CLIENT_TIMEOUT_S = 600.0
-
-#: flags not ported yet: (attribute, flag, ROADMAP item, what ports it)
-_UNPORTED = (
-    ("provenance", "--provenance", 9, "observability"),
-    ("explain", "--explain", 9, "observability"),
-    ("explain_sample", "--explain-sample", 9, "observability"),
-    ("hot_rules", "--hot-rules", 9, "observability"),
-)
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -289,12 +360,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--restore", action="store_true",
                     help="warm-start from the latest snapshot (+ WAL replay in "
                          "--live mode) instead of materialising")
-    # not ported yet: each exits naming its ROADMAP item
-    ap.add_argument("--provenance", action="store_true")
-    ap.add_argument("--explain", action="append", default=[], metavar="FACT")
-    ap.add_argument("--explain-sample", type=int, default=0, metavar="N")
-    ap.add_argument("--hot-rules", action="store_true")
+    ap.add_argument("--provenance", action="store_true",
+                    help="record the derivation journal during "
+                         "materialisation/updates (implied by --explain, "
+                         "--explain-sample, --hot-rules)")
+    ap.add_argument("--explain", action="append", default=[], metavar="FACT",
+                    help="explain one materialised fact, e.g. "
+                         "'path(v000000, v000003)' (repeatable; terms resolve "
+                         "through the KB dictionary, or raw ids)")
+    ap.add_argument("--explain-sample", type=int, default=0, metavar="N",
+                    help="explain N randomly sampled derived (non-explicit) "
+                         "facts and verify their proofs")
+    ap.add_argument("--hot-rules", action="store_true",
+                    help="render the per-rule cost table (derived/redundant/"
+                         "host time) from the journal")
     return ap
+
+
+def _wants_provenance(args) -> bool:
+    return bool(args.provenance or args.explain or args.explain_sample or args.hot_rules)
 
 
 @dataclass
@@ -672,12 +756,13 @@ def run(argv=None) -> ServeRun:
     """Parse ``argv``, serve, report; returns the :class:`ServeRun`."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for attr, flag, item, area in _UNPORTED:
-        if getattr(args, attr):
-            ap.error(f"{flag} is not ported yet ({area}: ROADMAP.md queue 1 item {item})")
     if args.mvcc and args.distributed:
         ap.error("--mvcc and --distributed are mutually exclusive")
     device = resolve_device(args.device)
+    if _wants_provenance(args):
+        journal = get_journal()
+        journal.enabled = True
+        journal.clear()
 
     if args.trace_out:
         get_tracer().enable()
@@ -724,7 +809,7 @@ def run(argv=None) -> ServeRun:
     if args.mvcc:
         served.rc = _serve_mvcc(args, report, served, flush_telemetry, update_at)
         if not served.rc:
-            _emit_tail(args, report, flush_telemetry)
+            _emit_tail(args, report, served, flush_telemetry)
         return served
 
     dist = served.dist
@@ -881,12 +966,86 @@ def run(argv=None) -> ServeRun:
         if args.live_verify and not _live_verify(report, program, inc):
             served.rc = 1
             return served
-    _emit_tail(args, report, flush_telemetry)
+    _emit_tail(args, report, served, flush_telemetry)
     return served
 
 
-def _emit_tail(args, report, flush_telemetry) -> None:
-    """Trailing report blocks: kernels, memory, trace, metrics."""
+def _emit_provenance(args, report, served) -> None:
+    """``[provenance]``: the journal's size, the explanations of the
+    ``--explain`` facts and ``--explain-sample`` draws (each a verified
+    proof tree, or not found), and the ``--hot-rules`` table."""
+    journal = get_journal()
+    inc, source, dictionary = served.inc, served.source, served.dictionary
+    explain_src = (
+        inc if inc is not None
+        else source if hasattr(source, "explain_fact") else None
+    )
+
+    def _decode(tid):
+        try:
+            return dictionary.term_of(int(tid))
+        except (KeyError, IndexError):  # an id outside the dictionary
+            return int(tid)
+
+    targets, parse_errors = [], []
+    for spec in args.explain:
+        try:
+            targets.append(_parse_fact_spec(spec, dictionary))
+        except ValueError as e:
+            parse_errors.append(str(e))
+    if args.explain_sample and explain_src is not None:
+        mat = inc.to_dict() if inc is not None else source.materialisation()
+        explicit = inc.explicit if inc is not None else source._explicit
+        targets += _sample_derived(mat, explicit, args.explain_sample, args.seed)
+
+    explanations = []
+    if explain_src is not None:
+        for pred, terms in targets:
+            node = explain_src.explain_fact(pred, terms, decode=_decode)
+            if node is None:
+                shown = ", ".join(str(_decode(t)) for t in terms)
+                explanations.append(
+                    {"fact": f"{pred}({shown})", "found": False, "verified": False})
+            else:
+                explanations.append(
+                    {"fact": node["fact"], "found": True, **_proof_summary(node)})
+    hot = journal.hot_rules(10) if args.hot_rules else []
+    n_ok = sum(1 for e in explanations if e["verified"])
+    prov_bytes = journal.memory_report()["journal_bytes"]
+    text = (
+        f"journal {len(journal.records)} records "
+        f"({journal.dropped} dropped, {prov_bytes / 1024:.1f}KiB)"
+    )
+    if explanations:
+        text += f"; {n_ok}/{len(explanations)} explanations verified"
+    elif targets and explain_src is None:
+        text += "; explain skipped (frozen snapshot serving, no engine)"
+    report.emit(
+        "provenance", text,
+        {"records": len(journal.records), "dropped": journal.dropped,
+         "journal_bytes": prov_bytes, "explanations": explanations,
+         "hot_rules": hot, "parse_errors": parse_errors,
+         "explain_available": explain_src is not None},
+    )
+    for e in explanations:
+        mark = "ok" if e["verified"] else ("NOT FOUND" if not e["found"] else "UNVERIFIED")
+        extra = f" depth={e['depth']} nodes={e['nodes']}" if e["found"] else ""
+        print(f"  explain {e['fact']}: {mark}{extra}")
+    if hot:
+        print("  hot rules (by recorded host time):")
+        for h in hot:
+            print(
+                f"    R{h['rule_id']:<3} {h['time_ns'] / 1e6:8.2f}ms  "
+                f"derived={h['derived']:<8} redundant={h['redundant']:<8} "
+                f"rounds={h['rounds_active']:<3} {h['rule']}"
+            )
+
+
+def _emit_tail(args, report, served, flush_telemetry) -> None:
+    """Trailing report blocks: provenance, kernels, memory, trace,
+    metrics."""
+    if _wants_provenance(args):
+        _emit_provenance(args, report, served)
     traffic = ", ".join(
         f"{op}: {m['calls']} calls / {m['elements']} elems"
         for op, m in sorted(ops.meter().items())
@@ -928,15 +1087,21 @@ def _emit_tail(args, report, flush_telemetry) -> None:
 
 
 def main(argv=None) -> int:
-    # --trace-out enables the process tracer: restore it on every exit
-    # path so in-process callers see no state leak
+    # --trace-out enables the process tracer and the provenance flags the
+    # journal: restore both on every exit path so in-process callers see
+    # no state leak
     tr = get_tracer()
     was_enabled = tr.enabled
+    journal = get_journal()
+    prov_was = journal.enabled
     try:
         return run(argv).rc
     finally:
         if not was_enabled:
             tr.disable()
+        if not prov_was:
+            journal.enabled = False
+            journal.clear()
 
 
 if __name__ == "__main__":

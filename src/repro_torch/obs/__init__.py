@@ -7,7 +7,9 @@
   :func:`publish_incremental`, :func:`publish_query_cache`,
   :func:`publish_serving` — stats -> registry;
 * :func:`sample_memory`, :func:`publish_predicate_effectiveness` — the
-  ``mem.*`` roll-up;
+  ``mem.*`` roll-up; :class:`MemorySampler` — span-driven peak watermarks;
+* :func:`get_journal`, :class:`Explainer`, :func:`proof_to_json`,
+  :func:`proof_to_dot` — derivation provenance (:mod:`.provenance`);
 * :func:`write_chrome_trace`, :func:`write_metrics` — exporters.
 """
 
@@ -21,6 +23,7 @@ from .adapters import (
 from .export import chrome_trace, write_chrome_trace, write_metrics
 from .memory import (
     MemoryAccountant,
+    MemorySampler,
     get_accountant,
     publish_predicate_effectiveness,
     register_reporter,
@@ -34,20 +37,35 @@ from .metrics import (
     get_registry,
     set_registry,
 )
+from .provenance import (
+    DerivationJournal,
+    DerivationRecord,
+    Explainer,
+    get_journal,
+    proof_to_dot,
+    proof_to_json,
+)
 from .trace import Tracer, get_tracer, instant, set_tracer, span
 
 __all__ = [
     "Counter",
+    "DerivationJournal",
+    "DerivationRecord",
+    "Explainer",
     "Gauge",
     "Histogram",
     "MemoryAccountant",
+    "MemorySampler",
     "MetricsRegistry",
     "Tracer",
     "chrome_trace",
     "get_accountant",
+    "get_journal",
     "get_registry",
     "get_tracer",
     "instant",
+    "proof_to_dot",
+    "proof_to_json",
     "publish_distributed",
     "publish_incremental",
     "publish_materialisation",

@@ -10,23 +10,32 @@ views a larger storage than its own elements (a slice of a bigger block)
 is reported as *backed*, so the block it views is not counted once per
 view-holder.  :func:`sample_memory` rolls the reports up into ``mem.*``
 gauges with peak watermarks; :func:`publish_predicate_effectiveness`
-publishes the ``mem.pred.*`` compression gauges.  (The span-driven peak
-sampler is not ported yet; see ``ROADMAP.md`` queue 1 item 9.)
+publishes the ``mem.pred.*`` compression gauges.
+
+:class:`MemorySampler` is the opt-in peak tracker: a tracer hook that
+re-samples the accountant (and RSS) at phase and round span boundaries,
+keeping per-phase high-water marks (``mem.peak.<phase>.*``), metering its
+own cost and throttling itself to a budget share of the wall time.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import weakref
 from typing import Protocol, runtime_checkable
 
 import torch
 
 from .metrics import MetricsRegistry, get_registry
+from .trace import Tracer, get_tracer
 
 __all__ = [
+    "PHASE_SPANS",
+    "ROUND_SPANS",
     "MemoryAccountant",
     "MemoryReporter",
+    "MemorySampler",
     "get_accountant",
     "predicate_effectiveness",
     "publish_predicate_effectiveness",
@@ -210,6 +219,165 @@ def register_reporter(kind: str, reporter: MemoryReporter) -> None:
 def sample_memory(phase: str | None = None, rss: bool = True) -> dict:
     """One roll-up on the process-wide accountant and registry."""
     return _ACCOUNTANT.sample(phase=phase, rss=rss)
+
+
+# --------------------------------------------------------------------- #
+# the peak sampler (tracer-hook driven)
+# --------------------------------------------------------------------- #
+#: span names that are a phase: sampling at their exit records the
+#: phase's closing watermark under ``mem.peak.<phase>.*``
+PHASE_SPANS: dict[str, str] = {
+    "cmat.materialise": "materialise",
+    "flat.materialise": "materialise",
+    "dist.stratum": "materialise",
+    "inc.seminaive_insert": "apply",
+    "inc.insertion_sweep": "apply",
+    "inc.deletion_sweep": "apply",
+    "inc.counting_insert": "apply",
+    "inc.counting_delete": "apply",
+    "inc.dred_stratum": "apply",
+    "storage.restore": "restore",
+    "storage.compact": "compact",
+    "serve.update_batch": "serve_batch",
+}
+
+#: intra-phase boundaries, sampled too (peaks live inside a fixpoint),
+#: attributed to the innermost enclosing phase span
+ROUND_SPANS: frozenset = frozenset({"cmat.round", "flat.round", "cmat.recompress"})
+
+
+class MemorySampler:
+    """Opt-in peak tracker riding span boundaries.
+
+    ``attach()`` registers a hook on the tracer (enabling it if it was
+    off; ``detach()`` restores the flag and publishes).  The hook fires
+    only for ``PHASE_SPANS`` / ``ROUND_SPANS`` names; it folds the
+    accountant's resident total (and RSS) into in-memory peaks, with no
+    gauge traffic per round, and meters itself into ``time_ns`` /
+    ``samples``.  It throttles itself: after a sample that cost ``c`` ns,
+    the next is allowed no sooner than ``c / budget`` ns later (skips
+    counted in ``throttled``), so its share of the wall stays within
+    ``budget``."""
+
+    def __init__(
+        self,
+        accountant: MemoryAccountant | None = None,
+        registry: MetricsRegistry | None = None,
+        extra_spans: dict[str, str] | None = None,
+        rss: bool = True,
+        budget: float = 0.01,
+    ):
+        self._accountant = accountant
+        self._registry = registry
+        self._rss = rss
+        self._budget = budget
+        self._next_ns = 0
+        self._phases = dict(PHASE_SPANS)
+        if extra_spans:
+            self._phases.update(extra_spans)
+        self._watch = frozenset(self._phases) | ROUND_SPANS
+        self.samples = 0
+        self.throttled = 0
+        self.time_ns = 0
+        self.peaks: dict[str, int] = {}
+        self._rss_peaks: dict[str, int] = {}
+        self._tracer: Tracer | None = None
+        self._was_enabled = False
+
+    # ------------------------------------------------------------------ #
+    def attach(self, tracer: Tracer | None = None) -> MemorySampler:
+        self._tracer = tracer if tracer is not None else get_tracer()
+        self._was_enabled = self._tracer.enabled
+        self._tracer.enable()
+        self._tracer.add_hook(self._hook)
+        self.sample()  # baseline watermark before any phase runs
+        return self
+
+    def detach(self) -> None:
+        if self._tracer is None:
+            return
+        self._tracer.remove_hook(self._hook)
+        if not self._was_enabled:
+            self._tracer.disable()
+        self._tracer = None
+        self._publish()
+
+    def __enter__(self) -> MemorySampler:
+        return self.attach()
+
+    def __exit__(self, *exc) -> bool:
+        self.detach()
+        return False
+
+    # ------------------------------------------------------------------ #
+    def _acc(self) -> MemoryAccountant:
+        return self._accountant if self._accountant is not None else get_accountant()
+
+    def _reg(self) -> MetricsRegistry:
+        return self._registry if self._registry is not None else get_registry()
+
+    def _hook(self, tracer: Tracer, rec) -> None:
+        name = rec.name
+        if name not in self._watch:
+            return
+        t0 = time.perf_counter_ns()
+        if t0 < self._next_ns:
+            self.throttled += 1
+            return
+        phase = self._phases.get(name)
+        if phase is None:
+            # round boundary: attribute to the innermost open phase
+            # (children exit before parents, so it is still on the stack)
+            for live in reversed(tracer._stack()):
+                phase = self._phases.get(live.name)
+                if phase is not None:
+                    break
+        self._sample_light(phase)
+        cost = time.perf_counter_ns() - t0
+        self.time_ns += cost
+        if self._budget > 0:
+            self._next_ns = t0 + cost + int(cost / self._budget)
+
+    def _note(self, key: str, resident: int, rss: int | None) -> None:
+        if resident > self.peaks.get(key, -1):
+            self.peaks[key] = resident
+        if rss is not None and rss > self._rss_peaks.get(key, -1):
+            self._rss_peaks[key] = rss
+
+    def _sample_light(self, phase: str | None) -> None:
+        """Hook-path sample: peaks only, no per-part gauges."""
+        self.samples += 1
+        self._note(phase or "(unphased)", self._acc().resident_bytes(),
+                   rss_bytes() if self._rss else None)
+
+    def sample(self, phase: str | None = None) -> dict:
+        """Full roll-up (gauges included), the explicit-call path."""
+        reg = self._reg()
+        flat = self._acc().sample(registry=reg, phase=phase, rss=self._rss)
+        self.samples += 1
+        self._note(phase or "(unphased)", flat.get("resident_bytes", 0),
+                   flat.get("rss_bytes", 0) if self._rss else None)
+        self._publish_counts(reg)
+        return flat
+
+    def _publish_counts(self, reg: MetricsRegistry) -> None:
+        reg.gauge("mem.sampler.samples").set(self.samples)
+        reg.gauge("mem.sampler.throttled").set(self.throttled)
+        reg.gauge("mem.sampler.time_s").set(self.time_ns / 1e9)
+
+    def _publish(self) -> None:
+        """One full roll-up plus the accumulated per-phase watermarks."""
+        reg = self._reg()
+        self._acc().sample(registry=reg, rss=self._rss)
+        for key, v in self.peaks.items():
+            _gauge_max(reg, "mem.peak_resident_bytes", v)
+            if key != "(unphased)":
+                _gauge_max(reg, f"mem.peak.{key}.resident_bytes", v)
+        for key, v in self._rss_peaks.items():
+            _gauge_max(reg, "mem.peak_rss_bytes", v)
+            if key != "(unphased)":
+                _gauge_max(reg, f"mem.peak.{key}.rss_bytes", v)
+        self._publish_counts(reg)
 
 
 def predicate_effectiveness(facts) -> dict[str, dict[str, float]]:

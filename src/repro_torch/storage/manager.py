@@ -21,13 +21,17 @@ Protocol (crash-safe at every step):
    store's device, replays newer WAL records through
    ``IncrementalStore.apply``, and only then attaches the WAL.
 
-The derivation journal's ``provenance.json`` sidecar, which the JAX
-package writes into a snapshot when its journal is on, is optional by
-that package's contract; this manager neither writes nor reads it.
+With the derivation journal on (:mod:`repro_torch.obs.provenance`),
+``checkpoint`` also writes its payload into the snapshot as
+``provenance.json`` before the rename, and ``restore`` loads it back.  The
+sidecar is optional: a restore without one still explains (rounds live in
+the snapshot), and a journal that is off ignores one.  Its JSON is the JAX
+package's, so each package loads the other's.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import time
@@ -189,6 +193,7 @@ class CheckpointManager:
                 explicit={p: r for p, r in inc.explicit.items() if r.numel()},
                 arities=inc.arities,
             )
+            self._write_provenance(tmp)
             if os.path.exists(final):  # re-checkpoint, unchanged epoch
                 shutil.rmtree(final)
             os.rename(tmp, final)
@@ -219,6 +224,33 @@ class CheckpointManager:
         reg.gauge("storage.disk_bytes").set(self.disk_nbytes())
         return manifest
 
+    def _write_provenance(self, snap_dir: str) -> None:
+        """Sidecar the derivation journal into the snapshot directory
+        (before the rename, under the same atomicity), only when the
+        journal is on."""
+        from ..obs.provenance import get_journal
+
+        journal = get_journal()
+        if not journal.enabled:
+            return
+        with open(os.path.join(snap_dir, "provenance.json"), "w") as fh:
+            json.dump(journal.to_payload(), fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+
+    def _load_provenance(self, snap_dir: str) -> bool:
+        """Load a snapshot's provenance sidecar into the live journal when
+        both the sidecar exists and the journal is on."""
+        from ..obs.provenance import get_journal
+
+        journal = get_journal()
+        path = os.path.join(snap_dir, "provenance.json")
+        if not journal.enabled or not os.path.exists(path):
+            return False
+        with open(path) as fh:
+            journal.load_payload(json.load(fh))
+        return True
+
     # ------------------------------------------------------------------ #
     def restore(self, program, *, verify: bool = False, **store_kwargs):
         """Warm start: latest snapshot + WAL replay, onto the device that
@@ -236,6 +268,7 @@ class CheckpointManager:
             )
             synchronize(inc.device)
             t_snap = time.perf_counter() - t0
+            self._load_provenance(snap)
             t0 = time.perf_counter()
             n_replayed = self.wal.replay(inc, after_epoch=meta.epoch)
             synchronize(inc.device)

@@ -98,20 +98,73 @@ def test_trace_and_metrics_files(tmp_path, capsys, fresh_registries):
     assert not serve.get_tracer().enabled  # main restored the tracer
 
 
-UNPORTED = [
-    (["--provenance"], 9),
-    (["--explain", "path(v000000, v000003)"], 9),
-    (["--explain-sample", "3"], 9),
-    (["--hot-rules"], 9),
-]
+PROVENANCE_RUNS = {
+    "provenance": ["--provenance"],
+    "explain": ["--explain", "taughtBy(student0, prof4)", "--explain",
+                "memberOf(student0, dept0)", "--explain", "bogus"],
+    "explain-sample": ["--explain-sample", "5"],
+    "hot-rules": ["--hot-rules"],
+    "live": ["--live", "--update-every", "100", "--update-size", "6", "--live-verify",
+             "--provenance", "--explain-sample", "4", "--hot-rules"],
+    "mvcc": ["--mvcc", "--concurrency", "1", "--live", "--update-every", "100",
+             "--update-size", "6", "--explain-sample", "3", "--hot-rules"],
+}
 
 
-@pytest.mark.parametrize("flag,item", UNPORTED, ids=[f[0][0] for f in UNPORTED])
-def test_unported_flags_name_their_item(flag, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu", "--kb", "paper", "--scale", "1", *flag])
-    assert exc.value.code == 2
-    assert f"ROADMAP.md queue 1 item {item}" in capsys.readouterr().err
+@pytest.fixture
+def journals_on():
+    """Both journals on before each run, so that ``main`` leaves them
+    filled for the cost comparison; restored after."""
+    import repro.obs.provenance as jprov
+    import repro_torch.obs.provenance as tprov
+
+    pair = (jprov.get_journal(), tprov.get_journal())
+    was = [j.enabled for j in pair]
+    for j in pair:
+        j.enabled = True
+    yield pair
+    for j, w in zip(pair, was):
+        j.enabled = w
+        j.clear()
+        j.begin_epoch(0)
+
+
+def _costs(journal) -> dict:
+    return {h["rule_id"]: {k: v for k, v in h.items() if k != "time_ns"}
+            for h in journal.hot_rules(len(journal.costs))}
+
+
+@pytest.mark.parametrize("run", list(PROVENANCE_RUNS))
+def test_provenance_flags_match_reference(run, tmp_path, capsys, fresh_registries,
+                                          journals_on):
+    """The ``[provenance]`` block of the four flags, live and under MVCC:
+    every non-timing field equal to the reference's; ``hot_rules`` (ranked
+    by host time, which differs) by ``rule_id`` against the whole cost
+    table, whose untimed fields must be equal."""
+    argv = ["--kb", "lubm", "--scale", "1", "--n-queries", "300", *PROVENANCE_RUNS[run]]
+    jj, tj = journals_on
+    want = _report(jserve.main, argv, tmp_path / "ref.jsonl")
+    want_costs = _costs(jj)
+    got = _report(serve.main, [*argv, "--device", "cpu"], tmp_path / "port.jsonl")
+    capsys.readouterr()
+    got_costs = _costs(tj)
+    assert got_costs == want_costs
+    prov, want_prov = dict(got["provenance"]), dict(want["provenance"])
+    hot, want_hot = prov.pop("hot_rules"), want_prov.pop("hot_rules")
+    assert prov == want_prov
+    assert len(hot) == len(want_hot) == (min(10, len(got_costs)) if "--hot-rules" in argv
+                                         else 0)
+    for h in hot:
+        assert {k: v for k, v in h.items() if k != "time_ns"} == got_costs[h["rule_id"]]
+    assert prov["records"] == len(tj.records) > 0
+    explained = prov["explanations"]
+    if run == "explain":
+        assert [e["found"] for e in explained] == [True, False]
+        assert len(prov["parse_errors"]) == 1
+    assert all(e["verified"] for e in explained if e["found"])
+    if run != "mvcc":  # the other blocks too (the MVCC tier's order-free test is below)
+        for block in sorted(set(want) - {"latency", "memory", "provenance"}):
+            assert _untimed(got[block]) == _untimed(want[block]), block
 
 
 def test_report_sink_concurrent_emits(tmp_path, capsys):
