@@ -48,18 +48,27 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        largest explain wall; the host syncs of a journal-off
                        (equal to phase 16's) and a journal-on materialise;
 6. small-distributed — ``DistributedEngine`` on the card against the same
-                       engine on the CPU on three small workloads and one
-                       that must regrow its join padding: fact sets, stats
-                       and state buffers row for row; with the journal on,
-                       the records after ``merge_shard_records`` equal;
+                       engine on the CPU at 1 and 4 shards (the 4 all on the
+                       card) on three small workloads, one that must regrow
+                       its join padding and, at 4 shards, one that must
+                       regrow an exchange bucket (``HUB_KW``): fact sets,
+                       stats and every shard's state buffers row for row;
+                       with the journal on, the records after
+                       ``merge_shard_records`` equal;
 7. full-distributed  — ``lubm_like(500, 30_000, 1_000)`` (the largest KB the
                        engine's 15-bit ids allow at this shape) materialised
-                       on the card, its stats held against the JAX
-                       reference's and its fact set against the flat oracle;
-                       then one ``apply`` deleting about 1 % of
+                       on the card at 1 shard and again at 4 shards (each
+                       with ``capacity`` 2**18 a shard), its stats held
+                       against the JAX reference's (``DIST_EXPECTED``,
+                       ``DIST_EXPECTED_4``) and its fact set against the
+                       flat oracle; then one ``apply`` deleting about 1 % of
                        ``takesCourse`` and ``advisor`` and one adding them
                        back, each held against the flat oracle of the edited
-                       explicit set;
+                       explicit set; the walls at 1 and 4 shards side by
+                       side, the launches per kernel of each;
+7a. examples         — ``repro_torch.examples.quickstart`` and
+                       ``distributed_reasoning`` on the card, each checking
+                       itself against the flat oracle; their rounds;
 8. closure           — every two-atom rule whose head pairs a left-only and
                        a right-only variable applied once more to the full
                        store through ``fused_join_dedup`` (regrown to its
@@ -76,9 +85,10 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``rle_expand`` in both key types, ``rle_expand`` also
                        with one run holding 90 % of the output,
                        ``sorted_member`` and ``join_bounds`` also at the
-                       distributed ``apply``'s largest launch in int32, these
-                       two and ``rle_expand`` at the query phase's largest
-                       launch in int64, with the
+                       largest launches in int32 of the 1-shard distributed
+                       ``apply`` and of the 4-shard materialise and
+                       ``apply``, these two and ``rle_expand`` at the query
+                       phase's largest launch in int64, with the
                        query path's own shapes ``query-one-constant`` (one
                        constant against a long candidate slice) and
                        ``query-one-key`` (one key against a long sorted
@@ -146,7 +156,11 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        the host syncs of the restore (its stream: 10
                        queries);
 14. mvcc             — ``--mvcc --concurrency 4 --live --live-verify`` there,
-                       100 queries, warm-started from phase 13's directory
+                       50 queries with a batch every 25 (cut from 100 with
+                       a batch every 50: one generalised micro-batch took
+                       150-190 s in two runs, which pushed the whole smoke
+                       past 80 % of its time limit; still one batch through
+                       the writer), warm-started from phase 13's directory
                        with the journal off (its snapshot's sidecar is not
                        loaded), checkpointing every 2 batches: zero stale reads, the tier's epoch the
                        restored epoch plus the batches applied, ``[live-verify]
@@ -155,7 +169,9 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        memory;
 15. serve-distributed — ``--distributed`` at ``--scale 270`` (the largest
                        whose ids stay below the engine's 2**15), static and
-                       ``--live --live-verify``: ``[dist-verify] OK`` after the
+                       ``--live --live-verify``, at the server's own shard
+                       count (one a visible card: 1 here): ``[dist-verify]
+                       OK`` after the
                        materialise and after the batches; the distributed
                        materialise and apply walls and launches; then the
                        largest ``sorted_member``, ``join_bounds`` and
@@ -174,7 +190,7 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        more live batch and the 50 queries after it.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 5a,
-7, 8, 11-15; phase 13's crashed run and its restore apart) and read just
+7 at each shard count, 8, 11-15; phase 13's crashed run and its restore apart) and read just
 after; every kernel of a path must have launched there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -220,6 +236,17 @@ DIST_EXPECTED = {
     "n_rule_applications": 24,
     "rule_applications_skipped": 5,
     "rows_joined": 149_912,
+    "exchange_regrows": 0,
+}
+#: the same at 4 shards: the JAX reference on 4 forced CPU devices (seed 0)
+DIST_EXPECTED_4 = {
+    "rounds": 15,
+    "n_strata": 14,
+    "n_rule_applications": 24,
+    "rule_applications_skipped": 5,
+    "rows_joined": 149_912,
+    "exchanges": 11,
+    "exchanges_skipped": 14,
     "exchange_regrows": 0,
 }
 DIST_FACTS, DIST_PREDICATES = 680_331, 21
@@ -1852,55 +1879,80 @@ def _dist_stats(stats) -> dict:
     }
 
 
+#: phase 6's shard counts; at 4 all shards sit on the one card
+SMALL_DIST_SHARDS = (1, 4)
+#: the exchange-bucket regrow at 4 shards: ``bipartite(100, 1)`` re-keys
+#: A(x_i, hub) on the hub, ~25 rows a shard into buckets of 64 // 4 slots,
+#: while no join outgrows its padding of 1,024
+HUB_KW = {"capacity": 64, "join_capacity": 1024}
+
+
 def check_small_distributed() -> None:
-    """The engine on the card against the same engine on the CPU: fact
-    sets, stats and state buffers row for row."""
+    """The engine on the card against the same engine on the CPU, at 1 and
+    4 shards: fact sets, stats and every shard's state buffers row for
+    row; with the journal on, the records after ``merge_shard_records``."""
     import torch
 
     from repro_torch.core.distributed import DistributedEngine
-    from repro_torch.core.generators import chain, lubm_like, paper_example
+    from repro_torch.core.generators import bipartite, chain, lubm_like, paper_example
 
     workloads = [
         ("chain", lambda: chain(15), {}),
         ("paper", lambda: paper_example(4, 3), {}),
         ("lubm", lambda: lubm_like(4, 50, 8), {}),
         ("chain-regrow", lambda: chain(30), {"join_capacity": 8}),
+        ("hub-regrow", lambda: bipartite(100, 1), HUB_KW),
     ]
-    for name, gen, kw in workloads:
-        program, dataset, _ = gen()
-        program = DistributedEngine.supported_program(program)
-        runs = {}
-        for device in ("cuda", "cpu"):
-            eng = DistributedEngine(program, device=device, capacity=1 << 10, **kw)
-            eng.materialise(dataset)
-            runs[device] = eng
-        card, cpu = runs["cuda"], runs["cpu"]
-        if not _facts_equal(card.to_dict(), cpu.to_dict()):
-            raise AssertionError(f"small-distributed {name}: fact sets differ (card vs CPU)")
-        if _dist_stats(card.stats) != _dist_stats(cpu.stats):
-            raise AssertionError(f"small-distributed {name}: stats differ (card vs CPU)")
-        for p, (rows, cnt, lo) in cpu._state.items():
-            crows, ccnt, clo = card._state[p]
-            if (ccnt, clo) != (cnt, lo) or not torch.equal(crows.cpu(), rows):
-                raise AssertionError(f"small-distributed {name}: state of {p} differs")
-        if kw and not card.stats.exchange_regrows:
-            raise AssertionError(f"small-distributed {name}: the join padding never regrew")
-        st = card.stats
-        log(f"[small-distributed] {name}: equal, rounds {st.rounds}, rows_joined "
-            f"{st.rows_joined}, exchange_regrows {st.exchange_regrows}")
-        # with the journal on: the records after ``merge_shard_records``
-        # (``check_integrity``) equal card vs CPU
-        records = {}
-        for device in ("cuda", "cpu"):
-            with journal_on() as journal:
-                eng = DistributedEngine(program, device=device, capacity=1 << 10, **kw)
+    for n_shards in SMALL_DIST_SHARDS:
+        for name, gen, kw in workloads:
+            if name == "hub-regrow" and n_shards == 1:
+                continue  # its 100 spokes fit 64 slots only when spread
+            program, dataset, _ = gen()
+            program = DistributedEngine.supported_program(program)
+            kw = {"capacity": 1 << 10, **kw, "n_shards": n_shards}
+            label = f"{name} at {n_shards} shard(s)"
+            runs = {}
+            for device in ("cuda", "cpu"):
+                eng = DistributedEngine(program, device=device, **kw)
                 eng.materialise(dataset)
-                eng.check_integrity(cpu.to_dict())
-                records[device] = _untimed_records(journal)
-        if not records["cuda"] or records["cuda"] != records["cpu"]:
-            raise AssertionError(f"small-distributed {name}: journal records differ")
-        log(f"[small-distributed] {name}: {len(records['cuda'])} merged journal records "
-            "equal (card vs CPU)")
+                runs[device] = eng
+            card, cpu = runs["cuda"], runs["cpu"]
+            if not _facts_equal(card.to_dict(), cpu.to_dict()):
+                raise AssertionError(f"small-distributed {label}: fact sets differ (card vs CPU)")
+            if _dist_stats(card.stats) != _dist_stats(cpu.stats):
+                raise AssertionError(f"small-distributed {label}: stats differ (card vs CPU)")
+            for p, (rows, cnt, lo) in cpu._state.items():
+                crows, ccnt, clo = card._state[p]
+                if (ccnt, clo) != (cnt, lo) or len(crows) != n_shards or not all(
+                    torch.equal(c.cpu(), r) for c, r in zip(crows, rows)
+                ):
+                    raise AssertionError(f"small-distributed {label}: state of {p} differs")
+            st = card.stats
+            if name == "chain-regrow" and not st.exchange_regrows:
+                raise AssertionError(f"small-distributed {label}: the join padding never regrew")
+            if name == "hub-regrow" and not (
+                st.exchange_regrows
+                and max(r["rows_joined"] for r in st.per_round) <= kw["join_capacity"]
+            ):
+                raise AssertionError(f"small-distributed {label}: no exchange bucket regrew")
+            if n_shards > 1 and not st.exchanges:
+                raise AssertionError(f"small-distributed {label}: no exchange")
+            log(f"[small-distributed] {label}: equal, rounds {st.rounds}, rows_joined "
+                f"{st.rows_joined}, exchanges {st.exchanges} ({st.exchanges_skipped} "
+                f"elided), exchange_regrows {st.exchange_regrows}")
+            # with the journal on: the records after ``merge_shard_records``
+            # (``check_integrity``) equal card vs CPU
+            records = {}
+            for device in ("cuda", "cpu"):
+                with journal_on() as journal:
+                    eng = DistributedEngine(program, device=device, **kw)
+                    eng.materialise(dataset)
+                    eng.check_integrity(cpu.to_dict())
+                    records[device] = _untimed_records(journal)
+            if not records["cuda"] or records["cuda"] != records["cpu"]:
+                raise AssertionError(f"small-distributed {label}: journal records differ")
+            log(f"[small-distributed] {label}: {len(records['cuda'])} merged journal "
+                "records equal (card vs CPU)")
 
 
 def _drop_rows(rows: np.ndarray, drop: np.ndarray) -> np.ndarray:
@@ -1911,7 +1963,14 @@ def _drop_rows(rows: np.ndarray, drop: np.ndarray) -> np.ndarray:
     return rows[~np.isin(code(rows), code(drop))]
 
 
-def run_full_distributed() -> dict:
+def run_full_distributed(n_shards: int = 1, oracles: dict | None = None,
+                         devices: list | None = None) -> dict:
+    """Phase 7 at ``n_shards`` shards, all on the card or one on each of
+    ``devices``: materialise (stats against the reference's, facts against
+    the flat oracle), then a 1 % delete ``apply`` and its re-add, each
+    against the flat oracle of the edited explicit set.  ``oracles`` are
+    those of an earlier call, which are computed (on the CPU) when it is
+    None."""
     import torch
 
     from repro_torch.core.distributed import DistributedEngine
@@ -1919,79 +1978,117 @@ def run_full_distributed() -> dict:
     from repro_torch.core.generators import lubm_like
     from repro_torch.kernels import ops
 
+    tag = f"[full-distributed {n_shards}{'' if devices is None else ' cards'}]"
+    where = "on the card" if devices is None else f"on {[str(d) for d in devices]}"
+    expected = DIST_EXPECTED if n_shards == 1 else DIST_EXPECTED_4
     program, dataset, _ = lubm_like(**DIST_KB)
     program = DistributedEngine.supported_program(program)
     n_explicit = sum(int(v.shape[0]) for v in dataset.values())
-    log(f"[full-distributed] lubm_like({DIST_KB}): {n_explicit} explicit triples, "
-        f"{len(program)} rules, capacity = join_capacity = {DIST_CAPACITY}")
+    log(f"{tag} lubm_like({DIST_KB}): {n_explicit} explicit triples, "
+        f"{len(program)} rules, {n_shards} shard(s) {where}, capacity = "
+        f"join_capacity = {DIST_CAPACITY} a shard")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    eng = DistributedEngine(program, capacity=DIST_CAPACITY, join_capacity=DIST_CAPACITY)
+    eng = DistributedEngine(program, capacity=DIST_CAPACITY, join_capacity=DIST_CAPACITY,
+                            n_shards=n_shards, devices=devices)
     facts = eng.materialise(dataset)  # every predicate, the empty ones too
-    torch.cuda.synchronize()
+    for d in eng.devices:
+        torch.cuda.synchronize(d)
     t_mat = time.perf_counter() - t0
     launches = ops.launch_counts()
-    log(f"[full-distributed] largest launch per kernel {ops.largest_launches()}")
+    largest = ops.largest_launches()
+    log(f"{tag} largest launch per kernel {largest}")
     n_facts = sum(int(r.shape[0]) for r in facts.values())
-    got = {k: getattr(eng.stats, k) for k in DIST_EXPECTED}
-    log(f"[full-distributed] materialise {t_mat:.3f} s, {got}, {n_facts} facts over "
+    got = {k: getattr(eng.stats, k) for k in expected}
+    log(f"{tag} materialise {t_mat:.3f} s, {got}, {n_facts} facts over "
         f"{len(facts)} predicates, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()}")
-    log(f"[full-distributed] launches {launches}")
-    if got != DIST_EXPECTED or (n_facts, len(facts)) != (DIST_FACTS, DIST_PREDICATES):
+    log(f"{tag} launches {launches}")
+    if got != expected or (n_facts, len(facts)) != (DIST_FACTS, DIST_PREDICATES):
         raise AssertionError(
-            f"full-distributed: stats {got}, {n_facts} facts over {len(facts)} "
-            f"predicates; the reference gives {DIST_EXPECTED}, {DIST_FACTS} over "
-            f"{DIST_PREDICATES}"
+            f"full-distributed at {n_shards} shard(s): stats {got}, {n_facts} facts "
+            f"over {len(facts)} predicates; the reference gives {expected}, "
+            f"{DIST_FACTS} over {DIST_PREDICATES}"
         )
     missing = [k for k in ("sorted_member", "join_bounds") if launches[k] == 0]
     if missing:
-        raise AssertionError(f"full-distributed never launched: {missing}")
-    t0 = time.perf_counter()
-    oracle = flat_seminaive(program, dataset, device="cpu")
-    log(f"[full-distributed] flat oracle on the CPU: {time.perf_counter() - t0:.1f} s")
-    if not _facts_equal(_nonempty(facts), _nonempty(oracle)):
-        raise AssertionError("full-distributed: fact set differs from flat_seminaive")
-    log("[full-distributed] fact set equals flat_seminaive")
+        raise AssertionError(f"full-distributed at {n_shards} shard(s) never launched: {missing}")
+    if oracles is None:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        dels = {
+            p: dataset[p][rng.choice(dataset[p].shape[0], dataset[p].shape[0] // 100,
+                                     replace=False)]
+            for p in ("takesCourse", "advisor")
+        }
+        edited = {p: _drop_rows(r, dels[p]) if p in dels else r for p, r in dataset.items()}
+        oracles = {"dels": dels,
+                   "full": _nonempty(flat_seminaive(program, dataset, device="cpu")),
+                   "edited": _nonempty(flat_seminaive(program, edited, device="cpu"))}
+        log(f"{tag} flat oracles on the CPU: {time.perf_counter() - t0:.1f} s")
+    if not _facts_equal(_nonempty(facts), oracles["full"]):
+        raise AssertionError(f"full-distributed at {n_shards} shard(s): fact set differs "
+                             "from flat_seminaive")
+    log(f"{tag} fact set equals flat_seminaive")
 
-    rng = np.random.default_rng(0)
-    dels = {
-        p: dataset[p][rng.choice(dataset[p].shape[0], dataset[p].shape[0] // 100, replace=False)]
-        for p in ("takesCourse", "advisor")
-    }
-    edited = {p: _drop_rows(r, dels[p]) if p in dels else r for p, r in dataset.items()}
+    dels = oracles["dels"]
     apply_launches = dict.fromkeys(launches, 0)
     apply_largest = {k: {} for k in launches}
-    for label, batch, explicit, want in (
-        ("delete", {"deletions": dels}, edited, None),
-        ("re-add", {"additions": dels}, dataset, oracle),
+    apply_s = {}
+    for label, batch, want in (
+        ("delete", {"deletions": dels}, oracles["edited"]),
+        ("re-add", {"additions": dels}, oracles["full"]),
     ):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         st = eng.apply(**batch)
-        torch.cuda.synchronize()
-        t_apply = time.perf_counter() - t0
+        for d in eng.devices:
+            torch.cuda.synchronize(d)
+        apply_s[label] = t_apply = time.perf_counter() - t0
         for k, v in ops.launch_counts().items():
             apply_launches[k] += v
         for k, v in ops.largest_launches().items():
             if sum(v.values()) > sum(apply_largest[k].values()):
                 apply_largest[k] = v
-        log(f"[full-distributed] apply {label} of "
+        log(f"{tag} apply {label} of "
             f"{sum(int(r.shape[0]) for r in dels.values())} rows: {t_apply:.3f} s, "
             f"rounds {st.rounds}, rule applications {st.n_rule_applications}, "
             f"overdeleted {st.n_overdeleted}, rederived {st.n_rederived}, deleted "
-            f"{st.n_deleted}, inserted {st.n_inserted}")
-        if want is None:
-            want = flat_seminaive(program, explicit, device="cpu")
-        if not _facts_equal(eng.to_dict(), _nonempty(want)):
-            raise AssertionError(f"full-distributed apply {label}: differs from re-materialisation")
-        log(f"[full-distributed] apply {label}: equals flat_seminaive of the edited explicit set")
-    log(f"[full-distributed] apply launches {apply_launches}")
-    log(f"[full-distributed] apply largest launch per kernel {apply_largest}")
+            f"{st.n_deleted}, inserted {st.n_inserted}, exchanges {st.exchanges} "
+            f"({st.exchanges_skipped} elided), exchange_regrows {st.exchange_regrows}")
+        if not _facts_equal(eng.to_dict(), want):
+            raise AssertionError(f"full-distributed at {n_shards} shard(s) apply {label}: "
+                                 "differs from re-materialisation")
+        log(f"{tag} apply {label}: equals flat_seminaive of the edited explicit set")
+    log(f"{tag} apply launches {apply_launches}")
+    log(f"{tag} apply largest launch per kernel {apply_largest}")
     return {"engine": eng, "launches": launches, "apply_launches": apply_launches,
-            "apply_largest": apply_largest}
+            "largest": largest, "apply_largest": apply_largest, "materialise_s": t_mat,
+            "apply_s": apply_s, "oracles": oracles}
+
+
+def run_examples() -> dict:
+    """Phase 7a: ``repro_torch.examples.quickstart`` and
+    ``distributed_reasoning`` on the card, each checking itself against the
+    flat oracle; their rounds."""
+    import io
+
+    from repro_torch.examples import distributed_reasoning, quickstart
+
+    out = {}
+    for name, run in (("quickstart", lambda: quickstart.main([])["rounds"]),
+                      ("distributed_reasoning", lambda: distributed_reasoning.main([]).rounds)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rounds = run()
+        wall = time.perf_counter() - t0
+        last = buf.getvalue().strip().splitlines()[-1]
+        log(f"[examples] {name}: {rounds} rounds, {wall:.3f} s; {last!r}")
+        out[name] = {"rounds": rounds, "wall_s": wall}
+    return out
 
 
 def run_closure(eng) -> dict:
@@ -2314,8 +2411,10 @@ def run_live(oracle_facts: int, profile: bool) -> dict:
 DURABLE_EVERY = 3
 #: the restore run's stream: no batch, the queries after a warm start
 DURABLE_RESTORE_QUERIES = 10
-#: the mvcc phase: its clients, queries (1-2 batches) and checkpoint interval
-MVCC_CLIENTS, MVCC_QUERIES, MVCC_EVERY = 4, 100, 2
+#: the mvcc phase: its clients, queries, a batch every ``MVCC_UPDATE_EVERY``
+#: queries (one batch; cut from 100 queries with a batch every 50 to keep
+#: the smoke within 80 % of its time limit) and the checkpoint interval
+MVCC_CLIENTS, MVCC_QUERIES, MVCC_UPDATE_EVERY, MVCC_EVERY = 4, 50, 25, 2
 #: the distributed phase's KB: the largest ``--scale`` whose ids stay
 #: below the engine's 2**15 limit (the generator's largest id is 120 *
 #: scale, 32,400 here)
@@ -2334,9 +2433,9 @@ class _Crash(Exception):
         self.inc = inc
 
 
-def _live_argv(scale: int, n_queries: int) -> list[str]:
+def _live_argv(scale: int, n_queries: int, every: int = LIVE_EVERY) -> list[str]:
     return ["--kb", "lubm", "--scale", str(scale), "--n-queries", str(n_queries), "--live",
-            "--update-every", str(LIVE_EVERY), "--update-size", str(LIVE_SIZE), "--live-verify"]
+            "--update-every", str(every), "--update-size", str(LIVE_SIZE), "--live-verify"]
 
 
 def check_small_durable(tmp: Path) -> dict:
@@ -2553,7 +2652,7 @@ def run_mvcc(tmp: Path) -> dict:
 
     from repro_torch.kernels import ops
 
-    argv = [*_live_argv(SERVE_SCALE, MVCC_QUERIES), "--mvcc", "--concurrency",
+    argv = [*_live_argv(SERVE_SCALE, MVCC_QUERIES, MVCC_UPDATE_EVERY), "--mvcc", "--concurrency",
             str(MVCC_CLIENTS), "--checkpoint-dir", str(tmp / "durable"),
             "--checkpoint-every", str(MVCC_EVERY), "--restore"]
     torch.cuda.synchronize()
@@ -2636,7 +2735,12 @@ def run_serve_distributed() -> dict:
         missing = [k for k in ("sorted_member", "join_bounds") if not launches[k]]
         if missing:
             raise AssertionError(f"distributed {mode}: never launched {missing}")
+        # the server's own shard count: one a visible card
+        if served.dist.n_shards != torch.cuda.device_count():
+            raise AssertionError(f"distributed {mode}: {served.dist.n_shards} shards on "
+                                 f"{torch.cuda.device_count()} card(s)")
         entry = {
+            "n_shards": served.dist.n_shards,
             "wall_s": wall,
             "host_load_s": blocks["materialise"]["seconds"],
             "dist_materialise_s": served.dist_materialise_s,
@@ -2911,15 +3015,23 @@ def main() -> int:
 
     check_small_distributed()
     dist = run_full_distributed()
+    dist4 = run_full_distributed(4, dist.pop("oracles"))
+    del dist4["engine"], dist4["oracles"]
+    log(f"[full-distributed] walls, 1 / 4 shards: materialise {dist['materialise_s']:.3f} / "
+        f"{dist4['materialise_s']:.3f} s, apply delete {dist['apply_s']['delete']:.3f} / "
+        f"{dist4['apply_s']['delete']:.3f} s, re-add {dist['apply_s']['re-add']:.3f} / "
+        f"{dist4['apply_s']['re-add']:.3f} s")
+    run_examples()
     closure = run_closure(dist.pop("engine"))
     torch.cuda.empty_cache()
 
     shapes = dict(full["largest_launch"])
     shapes["fused_join_dedup"] = closure["largest_launch"]["fused_join_dedup"]
     # sorted_member and join_bounds launch mostly on the distributed paths:
-    # time them at the apply's largest launch too, in the engine's int32
-    # keys; join_bounds also at the CMat run's own launches, and the merge
-    # at the closure's largest (int32, into a buffer that holds codes)
+    # time them at the largest launches of the 1-shard apply and of the
+    # 4-shard materialise and apply too, in the engine's int32 keys;
+    # join_bounds also at the CMat run's own launches, and the merge at
+    # the closure's largest (int32, into a buffer that holds codes)
     closure_merge = closure["largest_launch"]["merge_sorted_unique"]
     if not closure_merge.get("count"):
         raise AssertionError(f"the closure's largest merge holds no codes: {closure_merge}")
@@ -2931,6 +3043,8 @@ def main() -> int:
     extra = {
         "sorted_member": [
             ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
+            ("distributed-4", dist4["largest"]["sorted_member"], (torch.int32,)),
+            ("distributed-4-apply", dist4["apply_largest"]["sorted_member"], (torch.int32,)),
             ("query", query["largest_launch"]["sorted_member"], (torch.int64,)),
             ("query-one-constant", one_constant, (torch.int64,)),
         ],
@@ -2938,6 +3052,8 @@ def main() -> int:
             ("cmat-disjoint", CMAT_DISJOINT, (torch.int64,)),
             ("cmat-xjoin", CMAT_XJOIN, (torch.int64,)),
             ("distributed-apply", dist["apply_largest"]["join_bounds"], (torch.int32,)),
+            ("distributed-4", dist4["largest"]["join_bounds"], (torch.int32,)),
+            ("distributed-4-apply", dist4["apply_largest"]["join_bounds"], (torch.int32,)),
             ("query", query["largest_launch"]["join_bounds"], (torch.int64,)),
             ("query-one-key", {"n": 1, "m": query["one_key_m"]}, (torch.int64,)),
         ],
@@ -2948,6 +3064,10 @@ def main() -> int:
         "fused_join_dedup": [(f"closure-{j['head']}-{j['capacity']}", j, (torch.int32,))
                              for j in closure["joins"]],
     }
+    # a path on which every launch of a kernel searched an empty side (the
+    # 4-shard materialise's sorted_member) has no largest launch: the
+    # ``empty-b`` edge case holds that path
+    extra = {name: [e for e in cases if e[1]] for name, cases in extra.items()}
     kernel_numbers = check_kernels(torch.device("cuda"), shapes, extra)
     kernel_numbers["join_bounds"]["path_sweep"] = sweep_join_bounds(torch.device("cuda"))
 
@@ -2999,6 +3119,8 @@ def main() -> int:
         "provenance": prov["launches"],
         "distributed": dist["launches"],
         "distributed_apply": dist["apply_launches"],
+        "distributed_4": dist4["launches"],
+        "distributed_4_apply": dist4["apply_launches"],
         "closure": closure["launches"],
         "serve": serve["launches"],
         "live": live["launches"],

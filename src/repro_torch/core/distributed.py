@@ -1,42 +1,55 @@
-"""Distributed semi-naive materialisation and DRed maintenance, one shard.
+"""Distributed semi-naive materialisation and DRed maintenance over shards.
 
-Port of ``repro/core/distributed.py``'s ``DistributedEngine`` at one shard
-on one device (``device=None``: the card).  The reference hash-partitions
-every relation across the ``data`` axis of a JAX mesh and runs each round
-as one jitted ``shard_map`` call; this slice keeps its dataflow exactly at
-one shard, eagerly:
+Port of ``repro/core/distributed.py``'s ``DistributedEngine``.  The
+reference hash-partitions every relation across the ``data`` axis of a JAX
+mesh and runs each round as one jitted ``shard_map`` call; this port keeps
+its dataflow, eagerly, with one process driving every shard:
 
-* each predicate's state is a ``(capacity, arity)`` int32 row buffer on
-  the device (empty slots hold ``EMPTY = -1``) with a ``count`` and a
-  delta watermark ``delta_lo``: rows in ``[delta_lo, count)`` are the last
-  round's delta, rows below it are old;
+* every relation is hash-partitioned on its first column over ``n_shards``
+  shards, one device per shard (``devices``; by default every shard sits
+  on ``device``, the card when ``None``);
+* each shard keeps, per predicate, a ``(capacity, arity)`` int32 row buffer
+  (empty slots hold ``EMPTY = -1``) with a ``count`` and a delta watermark
+  ``delta_lo``: rows in ``[delta_lo, count)`` are the last round's delta,
+  rows below it are old;
 * each round evaluates one compiled ``(rule, pivot)`` plan per delta pivot
-  (:mod:`.compile`), joins through :func:`join_on_key` (its spans come from
-  the ``join_bounds`` kernel), dedups the candidates against the target
-  buffer through :func:`dedup_against` (membership by the
-  ``sorted_member`` kernel) and appends the fresh rows in first-occurrence
-  order, so the buffers match the reference's row for row;
-* a join bigger than ``join_capacity`` doubles the padding and retries the
-  round (``exchange_regrows``), as the reference's exchange does;
+  (:mod:`.compile`) on every shard, joins through :func:`join_on_key` (its
+  spans come from the ``join_bounds`` kernel), dedups the candidates
+  against the target buffer through :func:`dedup_against` (membership by
+  the ``sorted_member`` kernel) and appends the fresh rows in
+  first-occurrence order, so every shard's buffers match the reference's
+  row for row;
+* a join side whose stored first column is not the planned join key is
+  re-keyed through :meth:`DistributedEngine._exchange` before the join, and
+  each head predicate's candidates are routed to their owner shards after
+  it, unless the planner proves them aligned (``planner_exchange_keys``).
+  The exchange is the reference's ``all_to_all``: each source shard sorts
+  its rows by destination into buckets of one capacity, and each
+  destination gathers its bucket from shards ``0 .. n-1`` in turn;
+* rows past a bucket's capacity, or a join bigger than ``join_capacity``,
+  double the padding and retry the round (``exchange_regrows``, at most
+  ``MAX_REGROWS`` times);
 * :meth:`DistributedEngine.apply` runs the reference's DRed phases
   (overdelete, delete, rederive, insert) over the same rounds.
 
 Counts and watermarks are read back to the host once per round, together
-with the round's sums (one read), and kept there: the host slices each
-partition out of its buffer instead of masking the whole capacity.  The
-codes are the reference's int32 16-bit-halves pairs, so constants must lie
-in ``[0, MAX_DIST_CONST)``.
+with the round's sums (one read, not one per shard), and kept there: the
+host slices each partition out of its buffer instead of masking the whole
+capacity.  A bucket's capacity is still computed from the reference's
+padded lengths (a partition read is ``capacity`` long, the union of a base
+and an accumulator ``2 * capacity``, a join's output ``join_capacity *
+factor``), since it decides which rounds regrow.  The codes are the
+reference's int32 16-bit-halves pairs, so constants must lie in ``[0,
+MAX_DIST_CONST)``.
 
 With the derivation journal on (:mod:`repro_torch.obs.provenance`), each
 round records its schedule (one ``schedule`` record per ``(rule, pivot)``)
-and each predicate's growth (an ``apply`` record tagged with its shard),
-read from the host counts the round already holds; the DRed phases record
+and each shard's growth (an ``apply`` record tagged with its shard), read
+from the host counts the round already holds; the DRed phases record
 their overdeleted and rederived rows, and :meth:`check_integrity` merges
 the shard records.
 
-Not ported: several shards (a later slice takes them through
-``torch.distributed`` ``all_to_all_single``; ``ROADMAP.md`` queue 1 item
-11) and ``abstract_round`` (an XLA lowering hook with no torch twin).
+Not ported: ``abstract_round`` (an XLA lowering hook with no torch twin).
 """
 
 from __future__ import annotations
@@ -69,6 +82,7 @@ __all__ = [
     "join_on_key",
     "pack_pairs",
     "unpack_pairs",
+    "visible_devices",
 ]
 
 EMPTY = -1
@@ -76,7 +90,7 @@ EMPTY = -1
 #: the engine takes dictionaries of < 32768 constants
 MAX_DIST_CONST = 1 << 15
 BIG = torch.iinfo(torch.int32).max
-#: join-padding doublings one round may take before it gives up
+#: exchange/join-padding doublings one round may take before it gives up
 MAX_REGROWS = 8
 _I32 = torch.int32
 
@@ -91,7 +105,8 @@ class DistributedStats(MaterialisationStats):
     #: all_to_all calls issued (pre-join re-keying + head routing)
     exchanges: int = 0
     #: all_to_all calls avoided because the planner's partition key
-    #: matched the storage sharding
+    #: matched the storage sharding (or every head row was emitted on its
+    #: owner shard)
     exchanges_skipped: int = 0
     #: rounds retried with doubled exchange/join padding after overflow
     exchange_regrows: int = 0
@@ -105,10 +120,21 @@ class DistributedStats(MaterialisationStats):
     n_inserted: int = 0
 
 
-def _hash_shard_np(keys: np.ndarray, n_shards: int) -> np.ndarray:
-    """Multiplicative hash -> shard id (batch routing, dataset loads)."""
-    h = (keys.astype(np.uint32) * np.uint32(2654435761)) >> np.uint32(16)
-    return (h % np.uint32(n_shards)).astype(np.int32)
+def _hash_shard(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Multiplicative hash -> int32 shard id, stable across rounds: the
+    reference's uint32 product, taken in int64 modulo 2**32."""
+    h = ((keys.to(torch.int64) & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    return ((h >> 16) % n_shards).to(_I32)
+
+
+def visible_devices(device: torch.device | str | None = None) -> list[torch.device]:
+    """One shard's device per visible device of ``device``'s type, as the
+    reference's mesh over ``jax.devices()``: every card (``None``: the
+    card), or the one CPU."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 # --------------------------------------------------------------------- #
@@ -234,14 +260,16 @@ def _row_set(rows, arity: int) -> set[tuple[int, ...]]:
 # the engine
 # --------------------------------------------------------------------- #
 class DistributedEngine:
-    """Semi-naive materialisation for binary datalog over padded device
-    buffers, one shard.
+    """Hash-partitioned semi-naive materialisation for binary datalog over
+    padded device buffers.
 
     Supports the rule shapes of the reference: single-atom rules and
     two-atom single-key joins ``A(x,y), B(y,z) -> H(x,z)`` (plus unary
-    variants), arity <= 2.  ``seminaive=False`` reproduces the naive
-    iteration.  ``n_shards`` other than 1 raises
-    :class:`NotImplementedError`.
+    variants), arity <= 2.  ``n_shards`` shards sit on ``devices`` (one
+    each, the counterpart of the mesh's ``data`` axis) or, by default, all
+    on ``device``.  ``seminaive=False`` reproduces the naive iteration;
+    ``planner_exchange_keys=False`` disables the alignment-based exchange
+    elision.
     """
 
     def __init__(
@@ -251,35 +279,47 @@ class DistributedEngine:
         capacity: int = 1 << 14,
         join_capacity: int | None = None,
         seminaive: bool = True,
-        n_shards: int = 1,
+        planner_exchange_keys: bool = True,
+        n_shards: int | None = None,
+        devices=None,
     ):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "the port's distributed engine runs one shard per process; "
-                "several shards through torch.distributed all_to_all_single "
-                "are a later slice (ROADMAP.md queue 1 item 11)"
-            )
+        if n_shards is None:
+            n_shards = 1 if devices is None else len(devices)
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if devices is None:
+            devices = [resolve_device(device)] * n_shards
+        else:
+            devices = [resolve_device(d) for d in devices]
+            if len(devices) != n_shards:
+                raise ValueError(
+                    f"{len(devices)} devices for {n_shards} shards"
+                )
         self.program = program
-        self.device = resolve_device(device)
+        self.devices = tuple(devices)
+        self.device = self.devices[0]
         self.capacity = capacity
         self.join_capacity = join_capacity or capacity
         self.n_shards = n_shards
         self.seminaive = seminaive
+        self.planner_exchange_keys = planner_exchange_keys
         self._plan_cache = PlanCache()
-        #: per-predicate state: pred -> [rows, count, delta_lo]
+        #: per-predicate sharded state: pred -> [rows, count, delta_lo],
+        #: each a list with one entry per shard (tensors, host ints)
         self._state: dict[str, list] | None = None
         self._preds: tuple[str, ...] = ()
         self._arities: dict[str, int] = {}
+        #: global row counts (summed over the shards), the planner's input
         self._counts: dict[str, int] = {}
         #: host-side explicit fact set (int64 rows; the apply() contract)
         self.explicit: dict[str, torch.Tensor] = {}
         self.stats = DistributedStats()
         self.rounds = 0
         self.epoch = 0
-        #: join padding multiplier, doubled on overflow retries
+        #: exchange/join padding multiplier, doubled on overflow retries
         self._factor = 1
         #: True while an apply() sweep is in flight: a mid-sweep failure
-        #: leaves the state and the explicit set inconsistent, so further
+        #: leaves the shards and the explicit set inconsistent, so further
         #: applies are refused until the next materialise()
         self._dirty = False
         self._rule_ids: dict = {}
@@ -332,23 +372,31 @@ class DistributedEngine:
             self._pjournal.attach_program(self.program)
 
     # -------------------------------------------------------------- #
-    # routing (one shard: every row stays, in order)
+    # sharding / routing
     # -------------------------------------------------------------- #
     def _route(self, rows_by_pred: dict[str, torch.Tensor]) -> dict:
-        """Host rows into padded device buffers ``(capacity, arity)`` +
-        counts."""
-        cap = self.capacity
+        """Hash-partition host rows on their first column into per-shard
+        padded buffers ``(capacity, arity)`` on each shard's device, and
+        host counts; each shard keeps its rows in their host order."""
+        n, cap = self.n_shards, self.capacity
         out = {}
         for pred, rows in rows_by_pred.items():
             if rows.dim() == 1:
                 rows = rows.reshape(-1, 1)
             self._check_const_range(pred, rows)
-            n, arity = rows.shape
-            if n > cap:
-                raise ValueError(f"capacity {cap} too small for shard 0")
-            buf = torch.full((cap, arity), EMPTY, dtype=_I32, device=self.device)
-            buf[:n] = rows.to(device=self.device, dtype=_I32)
-            out[pred] = (buf, n)
+            rows = rows.to("cpu", _I32)
+            shard = _hash_shard(rows[:, 0], n) if n > 1 else None
+            bufs, cnts = [], []
+            for s, dev in enumerate(self.devices):
+                mine = rows if shard is None else rows[shard == s]
+                if mine.shape[0] > cap:
+                    raise ValueError(f"capacity {cap} too small for shard {s}")
+                buf = torch.full((cap, rows.shape[1]), EMPTY, dtype=_I32,
+                                 device=dev)
+                buf[: mine.shape[0]] = mine.to(dev)
+                bufs.append(buf)
+                cnts.append(int(mine.shape[0]))
+            out[pred] = (bufs, cnts)
         return out
 
     @staticmethod
@@ -366,7 +414,7 @@ class DistributedEngine:
 
     def _delta_count(self, pred: str) -> int:
         _, cnt, lo = self._state[pred]
-        return cnt - lo
+        return sum(c - l for c, l in zip(cnt, lo))
 
     # -------------------------------------------------------------- #
     # planning
@@ -441,56 +489,168 @@ class DistributedEngine:
             for rule, pivot in rule_pivots
         )
 
+    # -------------------------------------------------------------- #
+    # the exchange (the reference's all_to_all)
+    # -------------------------------------------------------------- #
+    def _exchange(self, side, length: int, factor: int, col: int = 0):
+        """Route every shard's rows to the ``hash(rows[:, col])`` owner
+        shard.
+
+        ``side`` holds one ``(rows, valid)`` per source shard; ``length``
+        is the reference's padded length of those rows, which fixes the
+        bucket capacity ``per``.  Each source sorts its valid rows by
+        destination (stably) into ``n_shards`` buckets of ``slots =
+        min(per, its row count)`` slots; destination ``d`` receives the
+        buckets of shards ``0 .. n-1`` in turn, each padded with ``EMPTY``
+        to ``slots``.  The padding is sent too: a destination gets ``n *
+        slots`` rows, of which about one in ``n`` is valid when the rows
+        hash evenly, and fewer where the source rows are padded themselves
+        (a join's output).  Sizing the buckets from the destinations'
+        counts would take a host read an exchange.  Returns the
+        per-destination ``(rows, valid)`` and the number of rows dropped
+        past ``per`` (an int32 scalar on the first shard's device), which
+        makes the round regrow instead of silently under-deriving."""
+        n = self.n_shards
+        # bucket capacity grows with the regrow factor but never past the
+        # input length — once one bucket can hold every row nothing drops,
+        # so the regrow loop ends
+        per = min(max(length * factor // n, 1), length)
+        dropped = torch.zeros((), dtype=_I32, device=self.device)
+        sent = []
+        for rows, valid in side:
+            # a bucket never needs more slots than its source has rows
+            slots = min(per, rows.shape[0])
+            dest = torch.where(valid, _hash_shard(rows[:, col], n), n)
+            dest_s, order = torch.sort(dest, stable=True)
+            # position within its bucket: offset from the bucket's start
+            start = torch.searchsorted(dest_s, dest_s)
+            pos = torch.arange(dest_s.shape[0], device=rows.device) - start
+            live = dest_s < n
+            ok = live & (pos < per)
+            dropped = dropped + (live & ~ok).sum(dtype=_I32).to(self.device)
+            # rows that are not sent are parked in one extra slot, cut off
+            slot = torch.where(ok, dest_s * slots + pos, n * slots)
+            buckets = torch.full((n * slots + 1, rows.shape[1]), EMPTY,
+                                 dtype=_I32, device=rows.device)
+            buckets[slot] = torch.where(ok[:, None], rows[order], EMPTY)
+            sent.append(buckets[: n * slots].view(n, slots, rows.shape[1]))
+        out = []
+        for d, dev in enumerate(self.devices):
+            rows = torch.cat([b[d].to(dev) for b in sent])
+            out.append((rows, rows[:, 0] != EMPTY))
+        return out, dropped
+
+    @staticmethod
+    def _side_aligned(atom, key) -> bool:
+        """True when a join side's stored partitioning (hash of the first
+        term) already equals the planner's partition key — no exchange."""
+        return bool(atom.terms) and atom.terms[0] == key
+
+    def _exchanges_side(self, atom, key) -> bool:
+        return self.n_shards > 1 and not (
+            self.planner_exchange_keys and self._side_aligned(atom, key)
+        )
+
     def _static_exchange_counts(self, pairs) -> tuple[int, int]:
         """How many all_to_all calls one round issues, and how many the
-        planner's partition keys elide: none at one shard."""
-        return 0, 0
+        planner's partition keys elide (none of either at one shard)."""
+        if self.n_shards == 1:
+            return 0, 0
+        n_ex = n_sk = 0
+        head_aligned: dict[str, bool] = {}
+        for rule, _pivot, plan in pairs:
+            steps = [plan.first] + [j.scan for j in plan.joins]
+            if len(steps) == 2:
+                key = plan.joins[0].partition_key
+                for st in steps:
+                    if self._exchanges_side(st.atom, key):
+                        n_ex += 1
+                    else:
+                        n_sk += 1
+                al = rule.head.terms[0] == key
+            else:
+                al = rule.head.terms[0] == steps[0].atom.terms[0]
+            p = rule.head.predicate
+            head_aligned[p] = head_aligned.get(p, True) and al
+        for al in head_aligned.values():
+            if self.planner_exchange_keys and al:
+                n_sk += 1
+            else:
+                n_ex += 1
+        return n_ex, n_sk
 
     # -------------------------------------------------------------- #
     # one (rule, pivot) plan over the partitions
     # -------------------------------------------------------------- #
     def _trace_pair(self, rule, plan, part, emit, factor):
-        """Evaluate one compiled (rule, pivot) body; emits its candidate
-        head rows and returns ``(dropped, rows_joined)`` device scalars for
-        a join (None for a single-atom body or an empty join side, which
-        contribute nothing)."""
+        """Evaluate one compiled (rule, pivot) body on every shard: emits
+        its candidate head rows and returns ``(dropped, rows_joined)``
+        int32 scalars on the first shard's device (None for a single-atom
+        body, which drops and joins nothing)."""
         head = rule.head
         steps = [plan.first] + [j.scan for j in plan.joins]
         if len(steps) == 1:
             st = steps[0]
-            rows = part(st.atom.predicate, st.source)
-            valid = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
-            rows, valid = _apply_atom_constraints(st.atom, rows, valid)
-            out = _project_head(st.atom.variables(), rows, head)
-            if out is not None:
-                emit(head.predicate, out, valid)
+            parts, length = part(st.atom.predicate, st.source)
+            blocks = []
+            for rows in parts:
+                valid = torch.ones(rows.shape[0], dtype=torch.bool,
+                                   device=rows.device)
+                rows, valid = _apply_atom_constraints(st.atom, rows, valid)
+                out = _project_head(st.atom.variables(), rows, head)
+                if out is None:
+                    return None
+                blocks.append((out, valid))
+            emit(head.predicate, blocks,
+                 head.terms[0] == st.atom.terms[0], length)
             return None
 
         key = plan.joins[0].partition_key
+        dropped = torch.zeros((), dtype=_I32, device=self.device)
+        joined = dropped
         sides = []
         for step in steps:
-            rows = part(step.atom.predicate, step.source)
-            if rows.shape[0] == 0:
-                return None  # joins to nothing: no candidates, no pairs
-            valid = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
-            rows, valid = _apply_atom_constraints(step.atom, rows, valid)
-            sides.append((rows, valid, step.atom.variables()))
-        (ra, va, va_vars), (rb, vb, vb_vars) = sides
-        ka = ra[:, va_vars.index(key)]
-        kb = rb[:, vb_vars.index(key)]
+            parts, length = part(step.atom.predicate, step.source)
+            vars_ = step.atom.variables()
+            side = [
+                _apply_atom_constraints(
+                    step.atom, rows,
+                    torch.ones(rows.shape[0], dtype=torch.bool,
+                               device=rows.device),
+                )
+                for rows in parts
+            ]
+            # re-partition on the planned join key — unless this side's
+            # storage sharding already is the key
+            if self._exchanges_side(step.atom, key):
+                side, d = self._exchange(side, length, factor,
+                                         col=vars_.index(key))
+                dropped = dropped + d
+            sides.append((side, vars_))
+        (a_side, va_vars), (b_side, vb_vars) = sides
+        ia, ib = va_vars.index(key), vb_vars.index(key)
         jcap = self.join_capacity * factor
-        lpay, rpay, valid, total = join_on_key(ka, va, ra, kb, vb, rb, jcap)
-        dropped = (total - jcap).clamp(min=0)
-        var_cols = {v: lpay[:, i] for i, v in enumerate(va_vars)}
-        for i, v in enumerate(vb_vars):
-            var_cols.setdefault(v, rpay[:, i])
-        cols = [
-            torch.full((jcap,), t, dtype=_I32, device=lpay.device)
-            if isinstance(t, int) else var_cols[t]
-            for t in head.terms
-        ]
-        emit(head.predicate, torch.stack(cols, dim=1), valid)
-        return dropped, total
+        blocks = []
+        for (ra, va), (rb, vb) in zip(a_side, b_side):
+            if ra.shape[0] == 0 or rb.shape[0] == 0:
+                blocks.append(None)  # joins to nothing on this shard
+                continue
+            lpay, rpay, valid, total = join_on_key(
+                ra[:, ia], va, ra, rb[:, ib], vb, rb, jcap
+            )
+            dropped = dropped + (total - jcap).clamp(min=0).to(self.device)
+            joined = joined + total.to(self.device)
+            var_cols = {v: lpay[:, i] for i, v in enumerate(va_vars)}
+            for i, v in enumerate(vb_vars):
+                var_cols.setdefault(v, rpay[:, i])
+            cols = [
+                torch.full((jcap,), t, dtype=_I32, device=lpay.device)
+                if isinstance(t, int) else var_cols[t]
+                for t in head.terms
+            ]
+            blocks.append((torch.stack(cols, dim=1), valid))
+        emit(head.predicate, blocks, head.terms[0] == key, jcap)
+        return dropped, joined
 
     # -------------------------------------------------------------- #
     # rounds
@@ -524,8 +684,9 @@ class DistributedEngine:
 
     def _build_round(self, pairs, factor, *, acc=None, union_acc=False,
                      restrict=None):
-        """One fixpoint round: evaluate every scheduled (rule, pivot) plan,
-        dedup, append into the delta partitions — without committing.
+        """One fixpoint round: evaluate every scheduled (rule, pivot) plan
+        on every shard, route the derivations to their owner shards, dedup,
+        append into the delta partitions — without committing.
 
         With ``acc`` the round evaluates against the read-only current
         materialisation while accumulating into ``acc``'s per-predicate
@@ -534,87 +695,132 @@ class DistributedEngine:
         ``restrict`` keeps only candidates inside a membership set).
 
         Returns ``(new_state, sums, merged)``: the new per-predicate
-        ``[rows, count, delta_lo]`` (counts of the ``merged`` predicates
-        still device scalars) and one int32 device vector ``[total_new,
-        dropped, overflow, rows_joined, *counts of merged]``."""
+        ``[rows, count, delta_lo]`` (the counts of the ``merged`` (pred,
+        shard) pairs still device scalars) and one int32 vector
+        ``[total_new, dropped, overflow, rows_joined, *counts of
+        merged]`` on the first shard's device."""
         base = self._state
-        dev = self.device
+        cap = self.capacity
 
         def part(pred, src):
+            """The partition's rows on every shard, and the reference's
+            padded length of them."""
             if acc is None:
                 rows, cnt, lo = base[pred]
                 if src == SRC_DELTA:
-                    return rows[lo:cnt]
+                    return [r[l:c] for r, c, l in zip(rows, cnt, lo)], cap
                 if src == SRC_OLD:
-                    return rows[:lo]
-                return rows[:cnt]
+                    return [r[:l] for r, l in zip(rows, lo)], cap
+                return [r[:c] for r, c in zip(rows, cnt)], cap
             arows, acnt, alo = acc[pred]
             if src == SRC_DELTA:
-                return arows[alo:acnt]
+                return [r[l:c] for r, c, l in zip(arows, acnt, alo)], cap
             brows, bcnt = base[pred][0], base[pred][1]
             if union_acc:
-                return torch.cat([brows[:bcnt], arows[:acnt]])
-            return brows[:bcnt]
+                return [
+                    torch.cat([b[:bc], a[:ac]])
+                    for b, bc, a, ac in zip(brows, bcnt, arows, acnt)
+                ], 2 * cap
+            return [b[:bc] for b, bc in zip(brows, bcnt)], cap
 
         derived: dict[str, list] = {}
 
-        def emit(pred, rows, valid):
-            derived.setdefault(pred, []).append((rows, valid))
+        def emit(pred, blocks, aligned, length):
+            derived.setdefault(pred, []).append((blocks, aligned, length))
 
-        zero = torch.zeros((), dtype=_I32, device=dev)
-        dropped, joined = zero, zero
+        dropped = torch.zeros((), dtype=_I32, device=self.device)
+        joined = dropped
         for rule, _pivot, plan in pairs:
             res = self._trace_pair(rule, plan, part, emit, factor)
             if res is not None:
                 dropped = dropped + res[0]
                 joined = joined + res[1]
 
-        new_state, total_new, overflow, merged, counts = self._merge_derived(
-            base if acc is None else acc, derived, restrict
+        new_state, total_new, d, overflow, merged, counts = (
+            self._merge_derived(
+                base if acc is None else acc, derived, factor, restrict
+            )
         )
-        sums = torch.stack([total_new, dropped, overflow, joined, *counts])
+        sums = torch.stack([
+            total_new, dropped + d, overflow, joined,
+            *(c.to(self.device) for c in counts),
+        ])
         return new_state, sums, merged
 
-    def _merge_derived(self, target, derived, restrict=None):
+    def _merge_derived(self, target, derived, factor=None, restrict=None):
         """Merge each predicate's candidate blocks ``derived[pred]`` (a
-        list of ``(rows, valid)``) into its ``target`` buffer, as the new
-        delta.  Returns ``(new_state, total_new, overflow, merged,
-        counts)``: the device scalars are read by the caller, ``counts``
-        are those of the ``merged`` predicates."""
+        list of ``(per-shard (rows, valid) or None, aligned, padded
+        length)``) into its ``target`` buffers, as the new delta.  With a
+        ``factor`` the candidates are first routed to their owner shards
+        (unless every block is aligned); without, they already sit there.
+
+        Returns ``(new_state, total_new, dropped, overflow, merged,
+        counts)``: int32 scalars on the first shard's device, read by the
+        caller, and the device counts of the ``merged`` (pred, shard)
+        pairs."""
         zero = torch.zeros((), dtype=_I32, device=self.device)
         new_state: dict[str, list] = {}
         merged, counts = [], []
-        total_new, overflow = zero, zero
+        total_new, dropped, overflow = zero, zero, zero
         for pred in self._preds:
             trows, tcnt, _tlo = target[pred]
-            blocks = derived.get(pred)
-            if not blocks:
-                # no candidates: the delta still gets consumed
-                new_state[pred] = [trows, tcnt, tcnt]
-                continue
-            rows = torch.cat([b[0] for b in blocks])
-            valid = torch.cat([b[1] for b in blocks])
-            rows = torch.where(valid[:, None], rows, EMPTY)
-            nrows, ncnt, n_fresh, of = self._merge_block(
-                trows, tcnt, rows, valid,
-                restrict=None if restrict is None else restrict[pred],
-            )
-            total_new = total_new + n_fresh
-            overflow = overflow + of
-            new_state[pred] = [nrows, ncnt, tcnt]
-            merged.append(pred)
-            counts.append(ncnt)
-        return new_state, total_new, overflow, merged, counts
+            new_state[pred] = [list(trows), list(tcnt), list(tcnt)]
+            blocks = derived.get(pred, [])
+            if all(b is None for shards, _a, _l in blocks for b in shards):
+                continue  # no candidates: the delta still gets consumed
+            cand = []
+            for s, dev in enumerate(self.devices):
+                mine = [shards[s] for shards, _a, _l in blocks
+                        if shards[s] is not None]
+                if not mine:
+                    cand.append(None)
+                    continue
+                rows = torch.cat([b[0] for b in mine])
+                valid = torch.cat([b[1] for b in mine])
+                cand.append((torch.where(valid[:, None], rows, EMPTY), valid))
+            # route each derivation to the shard owning its head key
+            if factor is not None and self.n_shards > 1 and not (
+                self.planner_exchange_keys and all(a for _s, a, _l in blocks)
+            ):
+                arity = self._arities[pred]
+                cand, d = self._exchange(
+                    [
+                        c if c is not None else (
+                            torch.empty((0, arity), dtype=_I32, device=dev),
+                            torch.empty(0, dtype=torch.bool, device=dev),
+                        )
+                        for c, dev in zip(cand, self.devices)
+                    ],
+                    sum(length for _s, _a, length in blocks),
+                    factor,
+                )
+                dropped = dropped + d
+            for s, c in enumerate(cand):
+                if c is None:
+                    continue
+                nrows, ncnt, n_fresh, of = self._merge_block(
+                    trows[s], tcnt[s], c[0], c[1],
+                    restrict=None if restrict is None else (
+                        restrict[pred][0][s], restrict[pred][1][s]
+                    ),
+                )
+                total_new = total_new + n_fresh.to(self.device)
+                overflow = overflow + of.to(self.device)
+                new_state[pred][0][s] = nrows
+                merged.append((pred, s))
+                counts.append(ncnt)
+        return new_state, total_new, dropped, overflow, merged, counts
 
     def _commit(self, new_state: dict[str, list]) -> None:
         self._state = new_state
         for p in self._preds:
-            self._counts[p] = new_state[p][1]
+            self._counts[p] = sum(new_state[p][1])
 
     def _run_round(self, pairs, build):
-        """Run one round (``build(factor)``); on join overflow, double the
-        padding factor and retry the *same* inputs (rounds commit nothing).
-        Returns ``(new_state, total_new, joined)`` with host counts."""
+        """Run one round (``build(factor)``); on exchange or join overflow,
+        double the padding factor and retry the *same* inputs (rounds
+        commit nothing).  Returns ``(new_state, total_new, joined)`` with
+        host counts."""
         n_ex, n_sk = self._static_exchange_counts(pairs)
         for _ in range(MAX_REGROWS + 1):
             new_state, sums, merged = build(self._factor)
@@ -625,8 +831,8 @@ class DistributedEngine:
                     f"capacity {self.capacity} — increase capacity"
                 )
             if dropped == 0:
-                for pred, cnt in zip(merged, counts):
-                    new_state[pred][1] = cnt
+                for (pred, s), cnt in zip(merged, counts):
+                    new_state[pred][1][s] = cnt
                 self.stats.exchanges += n_ex
                 self.stats.exchanges_skipped += n_sk
                 self.stats.rows_joined += joined
@@ -718,7 +924,7 @@ class DistributedEngine:
         heads, body_preds = stratum_predicates(stratum)
         if sweep_lo is not None:
             for p in self._preds:
-                self._state[p][2] = sweep_lo[p]
+                self._state[p][2] = list(sweep_lo[p])
         entry = naive_entry
         rounds = 0
         r0 = len(self.stats.per_round)
@@ -741,7 +947,8 @@ class DistributedEngine:
                 })
                 # counts are host ints: the growth records read no device
                 counts_before = (
-                    dict(self._counts) if self._pjournal is not None else None
+                    {p: list(self._state[p][1]) for p in self._preds}
+                    if self._pjournal is not None else None
                 )
                 with span(
                     "dist.round",
@@ -761,12 +968,15 @@ class DistributedEngine:
                             pivot=-1 if pivot is None else pivot,
                         )
                     for p in self._preds:
-                        grow = self._counts[p] - counts_before[p]
-                        if grow:
-                            self._record_dist(
-                                "apply", p, stratum=si, round_no=round_no,
-                                n_new=grow, shard=0,
-                            )
+                        for s, (now, before) in enumerate(
+                            zip(self._state[p][1], counts_before[p])
+                        ):
+                            if now != before:
+                                self._record_dist(
+                                    "apply", p, stratum=si,
+                                    round_no=round_no, n_new=now - before,
+                                    shard=s,
+                                )
                 rounds += 1
                 self.stats.n_rule_applications += len(pairs)
                 self.stats.per_round.append(
@@ -842,7 +1052,10 @@ class DistributedEngine:
         self._factor = 1
         self._dirty = False
         routed = self._route(full)
-        self._state = {p: [buf, cnt, 0] for p, (buf, cnt) in routed.items()}
+        self._state = {
+            p: [bufs, cnts, [0] * self.n_shards]
+            for p, (bufs, cnts) in routed.items()
+        }
 
     def materialise(self, dataset, max_rounds: int = 64) -> dict[str, torch.Tensor]:
         """Run rounds to fixpoint; returns per-predicate host rows
@@ -878,36 +1091,44 @@ class DistributedEngine:
         return {p: self._pull(*self._state[p][:2]) for p in self._preds}
 
     @staticmethod
-    def _pull(rows, cnt: int) -> torch.Tensor:
-        """Sorted unique int64 host rows of a buffer's first ``cnt``."""
-        return unique_rows(rows[:cnt].to("cpu", torch.int64))
+    def _pull(rows, cnt) -> torch.Tensor:
+        """Sorted unique int64 host rows of every shard's first ``cnt``."""
+        return unique_rows(torch.cat(
+            [r[:c].to("cpu", torch.int64) for r, c in zip(rows, cnt)]
+        ))
 
     # -------------------------------------------------------------- #
-    # incremental maintenance
+    # incremental maintenance: deltas through the exchange
     # -------------------------------------------------------------- #
-    def _empty_buffer(self, pred: str) -> torch.Tensor:
-        return torch.full((self.capacity, self._arities[pred]), EMPTY,
-                          dtype=_I32, device=self.device)
-
     def _new_acc(self, seeds: dict[str, torch.Tensor] | None = None) -> dict:
         routed = self._route_pairs(seeds or {})
-        return {p: [buf, cnt, 0] for p, (buf, cnt) in routed.items()}
+        return {
+            p: [bufs, cnts, [0] * self.n_shards]
+            for p, (bufs, cnts) in routed.items()
+        }
 
     def _pull_acc(self, acc: dict) -> dict[str, torch.Tensor]:
         return {
             p: self._pull(acc[p][0], acc[p][1])
             for p in self._preds
-            if acc[p][1]
+            if sum(acc[p][1])
         }
 
     def _route_pairs(self, rows_by_pred: dict) -> dict:
-        """``[rows, count]`` device buffers per predicate (empty when the
-        predicate has no rows in the batch)."""
+        """``[rows, count]`` per-shard buffers per predicate (empty when
+        the predicate has no rows in the batch)."""
         routed = self._route(
             {p: r for p, r in rows_by_pred.items() if r.shape[0]}
         )
         return {
-            p: list(routed[p]) if p in routed else [self._empty_buffer(p), 0]
+            p: list(routed[p]) if p in routed else [
+                [
+                    torch.full((self.capacity, self._arities[p]), EMPTY,
+                               dtype=_I32, device=dev)
+                    for dev in self.devices
+                ],
+                [0] * self.n_shards,
+            ]
             for p in self._preds
         }
 
@@ -928,11 +1149,12 @@ class DistributedEngine:
         return self._resolve(pairs, frozen=True)
 
     def apply(self, additions=None, deletions=None) -> DistributedStats:
-        """Incrementally maintain the materialisation for
+        """Incrementally maintain the sharded materialisation for
         ``E' = (E \\ deletions) ∪ additions``.
 
         Deletion batches run the DRed phases (overdelete / delete /
-        rederive) set-at-a-time over the rounds, addition batches the
+        rederive) set-at-a-time over the shards, their deltas through the
+        same exchange as materialisation rounds; addition batches run the
         stratified semi-naive insertion sweep.  Batches are clamped
         against the explicit set (idempotence), so the result is
         comparable through :meth:`check_integrity`."""
@@ -940,7 +1162,7 @@ class DistributedEngine:
             raise RuntimeError("materialise() must run before apply()")
         if self._dirty:
             raise RuntimeError(
-                "a previous apply() failed mid-sweep; the state is "
+                "a previous apply() failed mid-sweep; the sharded state is "
                 "inconsistent — materialise() again before applying"
             )
         t0 = time.perf_counter()
@@ -957,7 +1179,7 @@ class DistributedEngine:
             )
         # validate the whole batch BEFORE any mutation: a rejection after
         # effective_updates has touched self.explicit would permanently
-        # desynchronise the explicit set from the state
+        # desynchronise the explicit set from the shards
         for batch in (adds, dels):
             for pred, rows in batch.items():
                 self._check_const_range(pred, rows)
@@ -990,9 +1212,9 @@ class DistributedEngine:
         return st
 
     def _deletion_sweep(self, dels: dict[str, torch.Tensor], st) -> None:
-        """DRed: overdelete (delta rounds over the pre-deletion view),
-        physical delete, rederive (explicit restores + one-step check +
-        forward propagation)."""
+        """DRed over the shards: overdelete (delta rounds over the
+        pre-deletion view), physical delete, rederive (explicit restores +
+        one-step check + forward propagation)."""
         rules = [r for r in self.program if r.body]
         # --- overdelete: propagate the deleted delta ------------------- #
         with span("dist.overdelete") as sp:
@@ -1016,7 +1238,7 @@ class DistributedEngine:
                 if rows.shape[0]:
                     self._record_dist("overdelete", pred, n_new=rows.shape[0])
 
-        # --- delete: drop overdeleted rows ----------------------------- #
+        # --- delete: drop overdeleted rows from every shard ------------ #
         with span("dist.delete"):
             self._delete(over)
 
@@ -1063,49 +1285,60 @@ class DistributedEngine:
             )
 
     def _delete(self, over: dict[str, torch.Tensor]) -> None:
-        """Drop the given rows from every predicate's buffer and compact
-        the survivors to the front, in order (delta emptied)."""
+        """Drop the given rows, each routed to its owner shard, from every
+        predicate's buffers and compact the survivors to the front, in
+        order (delta emptied)."""
         routed = self._route_pairs(over)
-        new_state, kept = {}, {}
+        new_state, kept = {}, []
         for p in self._preds:
             rows, cnt, _lo = self._state[p]
             drows, dcnt = routed[p]
-            if dcnt == 0:
-                new_state[p] = [rows, cnt, cnt]
-                continue
-            cap = rows.shape[0]
-            dsorted = torch.sort(pack_pairs(drows[:dcnt])).values
-            keep = ~sorted_member(pack_pairs(rows[:cnt]).contiguous(), dsorted)
-            csum = torch.cumsum(keep, 0, dtype=_I32)
-            buf = torch.full((cap + 1, rows.shape[1]), EMPTY, dtype=_I32,
-                             device=rows.device)
-            buf[torch.where(keep, csum - 1, cap).long()] = rows[:cnt]
-            new_state[p] = [buf[:cap]]
-            kept[p] = keep.sum(dtype=_I32)
+            new_state[p] = [list(rows), list(cnt), list(cnt)]
+            for s in range(self.n_shards):
+                if dcnt[s] == 0:
+                    continue
+                r = rows[s]
+                cap = r.shape[0]
+                dsorted = torch.sort(pack_pairs(drows[s][: dcnt[s]])).values
+                keep = ~sorted_member(
+                    pack_pairs(r[: cnt[s]]).contiguous(), dsorted
+                )
+                csum = torch.cumsum(keep, 0, dtype=_I32)
+                buf = torch.full((cap + 1, r.shape[1]), EMPTY, dtype=_I32,
+                                 device=r.device)
+                buf[torch.where(keep, csum - 1, cap).long()] = r[: cnt[s]]
+                new_state[p][0][s] = buf[:cap]
+                kept.append((p, s, keep.sum(dtype=_I32)))
         if kept:
-            for p, n_keep in zip(kept, torch.stack(list(kept.values())).tolist()):
-                new_state[p] += [n_keep, n_keep]
+            n_keep = torch.stack([k.to(self.device) for _p, _s, k in kept])
+            for (p, s, _k), n in zip(kept, n_keep.tolist()):
+                new_state[p][1][s] = new_state[p][2][s] = n
         self._commit(new_state)
 
     def _merge_host_rows(self, rows_by_pred, st, *, count_inserted) -> int:
-        """Dedup-append host rows into their predicates' buffers as the
-        new delta; returns the number of genuinely fresh facts."""
-        derived = {
-            p: [(rows[:cnt], torch.ones(cnt, dtype=torch.bool, device=self.device))]
-            for p, (rows, cnt) in self._route_pairs(rows_by_pred).items()
-            if cnt
-        }
-        new_state, fresh, overflow, merged, counts = self._merge_derived(
-            self._state, derived
+        """Route host rows to their owner shards and dedup-append them as
+        the new delta; returns the number of genuinely fresh facts."""
+        derived = {}
+        for p, (bufs, cnts) in self._route_pairs(rows_by_pred).items():
+            if sum(cnts):
+                derived[p] = [([
+                    (r[:c], torch.ones(c, dtype=torch.bool, device=r.device))
+                    if c else None
+                    for r, c in zip(bufs, cnts)
+                ], True, self.capacity)]
+        new_state, fresh, _dropped, overflow, merged, counts = (
+            self._merge_derived(self._state, derived)
         )
-        fresh, overflow, *counts = torch.stack([fresh, overflow, *counts]).tolist()
+        fresh, overflow, *counts = torch.stack(
+            [fresh, overflow, *(c.to(self.device) for c in counts)]
+        ).tolist()
         if overflow > 0:
             raise RuntimeError(
                 f"relation buffer overflow: {overflow} rows past capacity "
                 f"{self.capacity} — increase capacity"
             )
-        for p, c in zip(merged, counts):
-            new_state[p][1] = c
+        for (p, s), c in zip(merged, counts):
+            new_state[p][1][s] = c
         self._commit(new_state)
         if count_inserted:
             st.n_inserted += fresh
@@ -1116,7 +1349,7 @@ class DistributedEngine:
         incoming delta; every stratum re-marks the sweep's net additions
         as its delta (the ``sweep_lo`` watermark)."""
         with span("dist.insert") as sp:
-            sweep_lo = {p: self._state[p][1] for p in self._preds}
+            sweep_lo = {p: list(self._state[p][1]) for p in self._preds}
             self._merge_host_rows(adds, st, count_inserted=True)
             strata = (
                 stratify(self.program)
@@ -1149,12 +1382,12 @@ class DistributedEngine:
         return {
             p: self._pull(rows, cnt)
             for p, (rows, cnt, _lo) in self._state.items()
-            if cnt
+            if sum(cnt)
         }
 
     def check_integrity(self, host) -> None:
-        """Differentially compare the materialisation against another
-        engine maintained with the same batches (any object with
+        """Differentially compare the sharded materialisation against
+        another engine maintained with the same batches (any object with
         ``to_dict()``, or a plain ``{pred: rows}`` dict); with the journal
         on, the shard records are merged first."""
         if self._pjournal is not None:

@@ -35,7 +35,8 @@ Snapshots and WAL files are the JAX package's format, byte for byte.
 ``--concurrency`` closed-loop client threads, micro-batched admission over
 pinned epochs, update batches through the tier's single writer thread.
 ``--distributed`` shadows the KB on the :class:`~repro_torch.core.distributed.DistributedEngine`
-(one shard, on the server's device): it is materialised beside the host
+(one shard per visible device of the server's device type: every card, or
+the one CPU): it is materialised beside the host
 store, checked against it (``[dist-verify]``), and under ``--live`` every
 update batch also goes through its ``apply``.  ``--mvcc`` and
 ``--distributed`` exclude each other, as in the JAX package.
@@ -69,7 +70,7 @@ import torch
 
 from ..core import CMatEngine, Dictionary, Program, flat_seminaive
 from ..core.generators import chain, lubm_like, paper_example, star
-from ..core.distributed import DistributedEngine
+from ..core.distributed import DistributedEngine, visible_devices
 from ..core.frozen import FrozenFacts
 from ..core.util import resolve_device, synchronize
 from ..incremental import IncrementalStore
@@ -705,8 +706,14 @@ def _start(args, report, program, dataset, device, ckpt, kb_label):
     return source, inc, recovery
 
 
+def _sync_shards(dist) -> None:
+    for dev in dict.fromkeys(dist.devices):
+        synchronize(dev)
+
+
 def _start_distributed(report, served, device) -> bool:
-    """``--distributed``: the KB on one shard on ``device``, materialised
+    """``--distributed``: the KB hash-partitioned over one shard per
+    visible device of ``device``'s type (``visible_devices``), materialised
     from the host store's explicit set (the restored one after a warm
     start) with buffers sized from the host materialisation; a static run
     is checked against the host here.  False when that check failed."""
@@ -723,10 +730,12 @@ def _start_distributed(report, served, device) -> bool:
     if mat_rows:
         biggest = max((int(r.shape[0]) for r in mat_rows.values()), default=0)
         cap = max(1 << 10, 1 << int(np.ceil(np.log2(max(2 * biggest, 2)))))
-    dist = served.dist = DistributedEngine(dprog, device=device, capacity=cap)
+    dist = served.dist = DistributedEngine(
+        dprog, devices=visible_devices(device), capacity=cap
+    )
     t0 = time.perf_counter()
     dist.materialise(inc.explicit if inc is not None else served.dataset)
-    synchronize(device)
+    _sync_shards(dist)
     served.dist_materialise_s = time.perf_counter() - t0
     ds = dist.stats
     report.emit(
@@ -844,7 +853,7 @@ def run(argv=None) -> ServeRun:
                     # the same batch through the distributed engine
                     t0 = time.perf_counter()
                     dist.apply(additions=additions, deletions=deletions)
-                    synchronize(device)
+                    _sync_shards(dist)
                     served.dist_apply_s.append(time.perf_counter() - t0)
                 if (
                     ckpt is not None

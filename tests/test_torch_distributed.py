@@ -17,6 +17,7 @@ for row (rows, count, delta watermark), and equal the port's
 
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -59,7 +60,7 @@ def _ref_snapshot(eng) -> dict:
         "to_dict": eng.to_dict(),
         "stats": _stats(eng.stats),
         "state": {
-            p: (np.asarray(rows)[0], int(np.asarray(cnt)[0]), int(np.asarray(lo)[0]))
+            p: (np.asarray(rows), np.asarray(cnt).tolist(), np.asarray(lo).tolist())
             for p, (rows, cnt, lo) in eng._state.items()
         },
     }
@@ -79,7 +80,9 @@ def _assert_same(eng, snap, result=None):
     for p, (rows, cnt, lo) in snap["state"].items():
         trows, tcnt, tlo = eng._state[p]
         assert (tcnt, tlo) == (cnt, lo), p
-        assert_array_equal(trows.numpy(), rows, err_msg=p)
+        assert len(trows) == len(rows), p
+        for s, shard in enumerate(rows):  # each shard's buffer row for row
+            assert_array_equal(trows[s].numpy(), shard, err_msg=f"{p} shard {s}")
 
 
 def _rows(dataset, pred):
@@ -197,17 +200,33 @@ def test_round_deltas_strictly_shrink_on_acyclic_data():
     assert all(a > b for a, b in zip(news, news[1:])), news
 
 
+@pytest.mark.parametrize("n_shards", [1, 4])
 @pytest.mark.parametrize("seminaive", [True, False])
-def test_static_exchange_counts_match_reference(seminaive):
+def test_static_exchange_counts_match_reference(seminaive, n_shards):
     """One shard issues no all_to_all and elides none, as the reference
-    does on its one-device mesh."""
+    does on its one-device mesh.  At four shards the port's static
+    exchange schedule equals the reference's host mirror of it (an engine
+    over a four-entry ``data`` axis) for the entry and the delta pair sets,
+    with and without planner exchange keys."""
     name = "lubm" if seminaive else "chain"
-    eng, _, program, _ = _port(name, seminaive=seminaive)
-    pairs = eng._resolve([(r, None) for r in program if r.body])
-    assert eng._static_exchange_counts(pairs) == (0, 0)
-    want = _reference(name, False, seminaive=seminaive)[0]["stats"]
-    got = (eng.stats.exchanges, eng.stats.exchanges_skipped)
-    assert got == (want["exchanges"], want["exchanges_skipped"]) == (0, 0)
+    eng, _, program, _ = _port(name, seminaive=seminaive, n_shards=n_shards)
+    pair_sets = [
+        eng._resolve([(r, None) for r in program if r.body]),
+        eng._resolve([(r, i) for r in program for i in range(len(r.body))]),
+    ]
+    if n_shards == 1:
+        assert eng._static_exchange_counts(pair_sets[0]) == (0, 0)
+        want = _reference(name, False, seminaive=seminaive)[0]["stats"]
+        got = (eng.stats.exchanges, eng.stats.exchanges_skipped)
+        assert got == (want["exchanges"], want["exchanges_skipped"]) == (0, 0)
+        return
+    ref = JDistributedEngine(program, SimpleNamespace(shape={"data": 4}))
+    for planner in (True, False):
+        eng.planner_exchange_keys = ref.planner_exchange_keys = planner
+        for pairs in pair_sets:
+            got = eng._static_exchange_counts(pairs)
+            assert got == ref._static_exchange_counts(pairs), (planner, pairs)
+            assert got[0] > 0 and (got[1] > 0) == planner
 
 
 def test_merge_block_exact_fill_keeps_last_row():
@@ -260,8 +279,8 @@ def test_guards():
     program, dataset, _ = chain(4)
     with pytest.raises(RuntimeError, match="materialise"):
         DistributedEngine(program, device="cpu").apply(additions=dataset)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DistributedEngine(program, device="cpu", n_shards=4)
+    with pytest.raises(ValueError, match="n_shards"):
+        DistributedEngine(program, device="cpu", n_shards=0)
     with pytest.raises(ValueError, match="too small"):
         DistributedEngine(program, device="cpu", capacity=2).materialise(dataset)
     with pytest.raises(RuntimeError, match="overflow"):
@@ -377,9 +396,11 @@ def test_primitives_match_reference():
     assert_array_equal(
         tdist.unpack_pairs(keys, 2).numpy(), np.asarray(jdist.unpack_pairs(jnp.asarray(keys.numpy()), 2))
     )
-    assert_array_equal(
-        tdist._hash_shard_np(rows[:, 0], 4), jdist._hash_shard_np(rows[:, 0], 4)
-    )
+    for n in (1, 2, 3, 4):  # the routing hash, EMPTY keys too
+        got = tdist._hash_shard(torch.from_numpy(rows[:, 0]), n)
+        assert got.dtype == torch.int32
+        assert_array_equal(got.numpy(), jdist._hash_shard_np(rows[:, 0], n))
+        assert_array_equal(got.numpy(), np.asarray(jdist._hash_shard(jnp.asarray(rows[:, 0]), n)))
     new = rng.integers(0, 50, size=400).astype(np.int32)
     valid = rng.random(400) < 0.8
     old = np.sort(rng.choice(60, size=20, replace=False)).astype(np.int32)

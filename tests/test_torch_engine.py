@@ -135,7 +135,7 @@ def test_report_matches_reference():
 # --------------------------------------------------------------------- #
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + sorted((REPO / "tools").glob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -157,8 +157,10 @@ def test_port_imports_neither_jax_nor_reference():
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert not bad, bad
     assert len(_port_files()) > 10
-    scanned = {path.relative_to(REPO / "src" / "repro_torch").as_posix()
-               for path in _port_files()[:-1]}
+    port = REPO / "src" / "repro_torch"
+    scanned = {path.relative_to(port).as_posix()
+               for path in _port_files() if path.is_relative_to(port)}
+    assert REPO / "tools" / "trace_distributed.py" in _port_files()
     assert {"core/frozen.py", "core/owl2rl.py", "kernels/lookup.py", "query/ast.py",
             "query/plan.py", "query/exec.py", "query/ref.py", "query/engine.py",
             "query/batch.py", "query/__init__.py", "incremental/index.py",
@@ -167,7 +169,8 @@ def test_port_imports_neither_jax_nor_reference():
             "storage/wal.py", "storage/manager.py", "serving/__init__.py",
             "serving/admission.py", "serving/epochs.py", "serving/tier.py",
             "launch/__init__.py", "launch/serve_datalog.py", "obs/export.py",
-            "obs/memory.py", "obs/provenance.py"} <= scanned
+            "obs/memory.py", "obs/provenance.py", "examples/quickstart.py",
+            "examples/distributed_reasoning.py"} <= scanned
 
 
 @pytest.mark.parametrize(
