@@ -8,7 +8,9 @@ engine on tensors, and ``FrozenFacts``, the frozen read side),
 parser, planner, executor, ``QueryEngine``, micro-batches, the flat
 oracle), ``kernels`` (hand-written CUDA kernels with their plain PyTorch
 versions), ``obs`` (spans, metrics, byte reports), ``incremental`` (what
-the distributed engine's ``apply`` needs).
+the distributed engine's ``apply`` needs), and the LLM substrate's
+serving half: ``configs`` (ten architectures) and ``models`` (forward
+pass, loss value and KV/SSM-cache decode).
 :mod:`.convert` carries compressed state over from numpy arrays.
 The entry points run on the card unless the caller passes
 ``device="cpu"``.

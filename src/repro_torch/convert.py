@@ -6,7 +6,8 @@ imports nothing of that package.  With these, the same compressed state
 can be fed to the port's ``match`` / ``sjoin`` / ``xjoin`` / ``elim_dup``
 and to the reference's; :func:`incremental_from_numpy` hands over a whole
 incremental store, so a batch can be applied to the same state in both
-packages.
+packages.  :func:`model_params_from_numpy` does the same for a model's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ __all__ = [
     "dataset_to_device",
     "facts_from_numpy",
     "incremental_from_numpy",
+    "model_params_from_numpy",
     "store_from_numpy",
 ]
 
@@ -118,3 +120,32 @@ def incremental_from_numpy(program, *, nodes: dict, next_id: int, meta_facts,
     inc.epoch = int(epoch)
     inc._round = int(round_no)
     return inc
+
+
+def model_params_from_numpy(cfg, tree) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``models.transformer.Transformer(cfg, ...)``
+    from the JAX package's parameter tree as numpy arrays (each stage's
+    leaves stacked ``(n, ...)`` on the layer axis, a list of stages): the
+    tree flattened with dots, every leaf an f32 tensor on the CPU.  Raises
+    ``ValueError`` unless its names and shapes are exactly those of
+    ``cfg``'s model."""
+    from .models.transformer import Transformer
+
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node) -> None:
+        items = node.items() if isinstance(node, dict) else (
+            enumerate(node) if isinstance(node, (list, tuple)) else None)
+        if items is None:
+            out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+            return
+        for key, child in items:
+            walk(f"{prefix}.{key}" if prefix else str(key), child)
+
+    walk("", tree)
+    want = {k: tuple(v.shape) for k, v in Transformer(cfg, "meta").state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"{cfg.name}: the tree differs from the model's layout: {diff[:8]}")
+    return out

@@ -12,8 +12,9 @@ paper and lubm, with and without planner exchange keys and with
 ``seminaive=False``; a one-hub star KB whose re-keyed join side
 overflows an exchange bucket (a regrow that the join padding does not explain); the
 delete and re-add of two chain edges; seeded ``random_kb`` batch
-sequences; and, on the chain run, the derivation journal's records after
-``merge_shard_records``.
+sequences (one of them also at three shards, on three of the four
+devices: a shard count that is not a power of two); and, on the chain
+run, the derivation journal's records after ``merge_shard_records``.
 """
 
 import os
@@ -48,6 +49,8 @@ N_SHARDS = 4
 #: each shard sends its ~25 A rows to one bucket of capacity // 4 = 16 slots
 HUB_CAPACITY, HUB_JOIN_CAPACITY = 64, 1024
 RANDOM_SEEDS = (9, 10)
+#: the shard count that is not a power of two, on ``RANDOM_SEEDS[0]``
+ODD_SHARDS = 3
 #: chain edges deleted, then re-added
 CHAIN_EDGES = slice(5, 7)
 
@@ -98,9 +101,8 @@ def _dump_reference(path: str, part: str) -> None:
     from repro.core.flat import flat_seminaive as jflat
     from repro.obs import provenance as jprov
 
-    mesh = Mesh(np.asarray(jax.devices()).reshape(N_SHARDS), ("data",))
-
-    def engine(program, **kw):
+    def engine(program, n_shards=N_SHARDS, **kw):
+        mesh = Mesh(np.asarray(jax.devices()[:n_shards]), ("data",))
         program = JDistributedEngine.supported_program(program)
         return JDistributedEngine(program, mesh, **{"capacity": CAPACITY, **kw})
 
@@ -131,15 +133,16 @@ def _dump_reference(path: str, part: str) -> None:
         out["chain-merged-records"] = _untimed_records(journal)
         journal.enabled = False
         _reset(journal)
-        for seed in RANDOM_SEEDS:
+        for seed, n_shards in [(s, N_SHARDS) for s in RANDOM_SEEDS] + [
+                (RANDOM_SEEDS[0], ODD_SHARDS)]:
             program, dataset, batches = _random_workload(seed)
-            eng = engine(program)
+            eng = engine(program, n_shards)
             eng.materialise(dataset)
             snaps = [_ref_snapshot(eng)]
             for adds, dels in batches:
                 eng.apply(additions=adds, deletions=dels)
                 snaps.append(_ref_snapshot(eng))
-            out[f"random-{seed}"] = snaps
+            out[f"random-{seed}-{n_shards}"] = snaps
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
@@ -264,9 +267,19 @@ def test_random_kb_apply_sequence_matches_reference(reference, seed):
     """A seeded ``random_kb``: materialise, then a mixed batch, its
     inverse, a delete of every explicit fact and its re-add, each held
     against the reference's four shards."""
+    _check_random(reference, seed, N_SHARDS)
+
+
+def test_random_kb_three_shards_match_reference(reference):
+    """The same sequence at three shards, against the reference's mesh of
+    three devices."""
+    _check_random(reference, RANDOM_SEEDS[0], ODD_SHARDS)
+
+
+def _check_random(reference, seed, n_shards):
     program, dataset, batches = _random_workload(seed)
-    snaps = reference[f"random-{seed}"]
-    eng = DistributedEngine(program, device="cpu", n_shards=N_SHARDS,
+    snaps = reference[f"random-{seed}-{n_shards}"]
+    eng = DistributedEngine(program, device="cpu", n_shards=n_shards,
                             capacity=CAPACITY)
     _assert_same(eng, snaps[0], eng.materialise(dataset))
     for (adds, dels), snap in zip(batches, snaps[1:]):

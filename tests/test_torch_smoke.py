@@ -365,3 +365,86 @@ def test_larger_launches_keeps_only_launches_above_every_base(smoke):
                                         "join_bounds": {}}}}
     got = smoke.larger_launches(base, runs)
     assert got == {"mvcc": {"largest_launch": {"rle_expand": {"runs": 30, "total": 30}}}}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "zamba2-1.2b", "seamless-m4t-large-v2"])
+def test_model_phase_forces_every_layer_and_router(smoke, arch):
+    """Phase 1a's card run, rehearsed on the CPU: the forced run consumes
+    every layer and router call the recorded run made (MLA, MoE and the
+    MTP head; the hybrid's shared attention; the encoder) and, on the same
+    device, reproduces it exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, "cpu")
+    net = model.init(torch.Generator().manual_seed(0))
+    inputs = smoke._model_inputs(cfg)
+    with smoke._recording() as (layers, routes):
+        want = smoke._model_run(model, net, inputs, "cpu")
+    n_decode = smoke.MODEL_STEPS * cfg.n_layers
+    assert len(layers) == 2 * (cfg.n_layers + cfg.n_encoder_layers) + cfg.mtp_depth + n_decode
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense if cfg.moe else 0
+    assert len(routes) == n_moe * (2 + smoke.MODEL_STEPS)
+    with smoke._forcing(layers, routes, smoke.MODEL_TOL["bf16"]) as forced:
+        got = smoke._model_run(model, net, inputs, torch.device("cpu"))
+    b, s = smoke.MODEL_B, smoke.MODEL_S
+    assert forced == {"layer_max_abs_err": 0.0, "near_ties": 0, "tie_gap": 0.0,
+                      "routed_rows": n_moe * (2 * b * s + smoke.MODEL_STEPS * b)}
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen2-moe-a2.7b"])
+def test_model_phase_forces_the_decode_from_a_forward(smoke, arch):
+    """Phase 1a (c)'s MoE run, rehearsed on the CPU: a forward's records,
+    cut by ``_by_step``, feed every decode step's layers and routers in
+    the decode's order, and the forced decode ends on the forward's
+    logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, "cpu")
+    net = model.init(torch.Generator().manual_seed(0))
+    n = smoke.WIDE_MOE_S
+    tokens = torch.from_numpy(smoke._model_inputs(cfg)["tokens"][:, :n])
+    with torch.no_grad():
+        with smoke._recording() as (layers, routes):
+            full, _ = model.logits(net, {"tokens": tokens})
+        cache = model.init_cache(smoke.MODEL_B, n)
+        with smoke._forcing(*smoke._by_step(layers, routes, n), smoke.MODEL_TOL["bf16"],
+                            rowwise=True, hold_routes=False) as forced:
+            decode = torch.cat([model.decode_step(net, tokens[:, t:t + 1], cache, t)[0]
+                                for t in range(n)], dim=1)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    assert forced["routed_rows"] == n_moe * smoke.MODEL_B * n
+    torch.testing.assert_close(decode.float(), full.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_route_ties_counts_near_ties_and_raises_past_them(smoke):
+    """Two routers' top-2 of 4 experts: a row that differs at a
+    log-probability gap below ``ROUTE_TIE`` is counted, one past it
+    raises unless not held."""
+    tie = smoke.ROUTE_TIE
+    probs = torch.log_softmax(torch.tensor([[3.0, 2.0, 2.0 - tie / 2, 0.0],
+                                            [3.0, 2.0, 1.0, 0.0]]), dim=-1).exp()
+    ids = torch.tensor([[0, 1], [0, 1]])
+    assert smoke.route_ties(probs, ids, probs, ids, 2) == (0, 0.0)
+    ties, gap = smoke.route_ties(probs, torch.tensor([[0, 2], [1, 0]]), probs, ids, 2)
+    assert ties == 1 and 0 < gap < tie
+    with pytest.raises(AssertionError, match="log-probability gap"):
+        smoke.route_ties(probs, torch.tensor([[0, 1], [0, 2]]), probs, ids, 2)
+    ties, gap = smoke.route_ties(probs, torch.tensor([[0, 1], [0, 2]]), probs, ids, 2,
+                                 hold=False)
+    assert ties == 1 and gap == pytest.approx(1.0, abs=1e-5)
+
+
+@pytest.mark.parametrize("ties,rows,ok", [(0, 0, True), (1, 100, True), (2, 256, True),
+                                          (1, 99, False), (3, 256, False)])
+def test_check_tie_share(smoke, ties, rows, ok):
+    if ok:
+        smoke.check_tie_share("x", ties, rows)
+    else:
+        with pytest.raises(AssertionError, match=f"{ties} of {rows} routed rows"):
+            smoke.check_tie_share("x", ties, rows)
