@@ -33,7 +33,22 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        ``decode_step`` against ``forward_logits`` (the MoE
                        pair layer by layer),
                        the loss finite, peak memory; no hand kernel may
-                       launch;
+                       launch; (d) training: each smoke config's state
+                       made on the CPU and copied to the card, three
+                       ``make_train_step`` steps on both (llama3.2-1b
+                       with two microbatches, qwen3-0.6b with int8
+                       gradient compression, the MoE pair with the CPU's
+                       experts replayed at near ties): metrics, moments
+                       and parameters held (``run_train``); llama3.2-1b
+                       at full width (16 layers, d_model 2,048, vocab
+                       128,256) through ``repro_torch.launch.train
+                       --kb-corpus --steps 10``: the loss falls, the
+                       stream equals the CPU's (``KB_STREAM_TOKENS``),
+                       the corpus build launches ``TRAIN_KERNELS`` and
+                       the steps none; step wall, tokens/s, peak memory,
+                       losses, corpus wall; ``run_with_recovery`` against
+                       an uninterrupted run under deterministic
+                       algorithms;
 2. small             — ``CMatEngine(fused=True)`` on the card against the
                        same engine on the CPU, on five small workloads; then
                        each again with the derivation journal on, and
@@ -215,7 +230,8 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        device and host operators; and, within phase 12, one
                        more live batch and the 50 queries after it.
 
-Launch counts are zeroed just before each main-path run (phases 1a, 4, 5, 5a,
+Launch counts are zeroed just before each main-path run (phases 1a, 1a (d)'s
+full-width run, 4, 5, 5a,
 7 at each shard count, 8, 11-15; phase 13's crashed run and its restore apart) and read just
 after; every kernel of a path must have launched there.
 
@@ -232,6 +248,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -864,6 +881,418 @@ def run_models() -> dict:
     log(f"[models] json {json.dumps(out)}")
     torch.cuda.empty_cache()
     return {**out, "launches": launches}
+
+
+# --------------------------------------------------------------------- #
+# phase 1a (d): training (optim/, data/, train/, launch/train.py)
+# --------------------------------------------------------------------- #
+#: part (d) 1: three steps of each smoke config, batch, sequence, lr
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = 3, 4, 32, 1e-3
+#: warmup_cosine(t, warmup=1, total=3) at t = 0, 1, 2: the first step
+#: moves no parameter
+TRAIN_LR_SCALES = (0.0, 1.0, 0.55)
+#: each parameter leaf's change over the three steps, ``p_3 - p_0``, by
+#: relative L2 error against the CPU's change (Adam's normalised update
+#: passes a small gradient's relative error on undamped).  Sound runs on
+#: an H100 read 0.0084-0.1005 a config at worst (deepseek-v3's
+#: embedding), the CPU tests against the JAX package 0.0117-0.1042:
+#: twice the largest is the bound.  A step that never writes the
+#: parameters reads 1.
+TRAIN_PARAM_DELTA_REL_L2 = 0.2
+#: ``grad_norm``, the first moments and the compressed gradients by
+#: relative L2 error, at the bound the CPU tests hold the port's
+#: gradients to the JAX package's with; the second moments, averages of
+#: squared gradients, at twice it (a square doubles a relative error)
+TRAIN_REL_L2 = 5e-2
+#: an int8 code's residual is at most half its quantisation step (the
+#: leaf's largest magnitude over 127), f32 rounding aside
+TRAIN_HALF_STEP = 0.5 + 2**-16
+#: the variants: two microbatches for one dense config, int8 gradient
+#: compression for another
+TRAIN_VARIANTS = {"llama3.2-1b": {"microbatches": 2}, "qwen3-0.6b": {"grad_compression": True}}
+#: part (d) 2: llama3.2-1b at full width through the training driver, at
+#: its batch 8, sequence 128 and lr 3e-3, on the --kb-corpus stream (cut
+#: from 20 steps to 10 after a smoke of 1,054.2 s, to keep it within its
+#: time limit)
+TRAIN_FULL_ARGV = ["--arch", "llama3.2-1b", "--kb-corpus", "--steps", "10"]
+#: the stream's length: the JAX package's ``linearise_materialisation``
+#: of ``lubm_like(20, 400, 40)`` at vocabulary 128,256 (as
+#: ``DIST_EXPECTED``, the reference's own count)
+KB_STREAM_TOKENS = 42_950
+#: the kernels the corpus build's ``CMatEngine`` (not fused) launches
+TRAIN_KERNELS = ("sorted_member", "join_bounds", "rle_expand")
+#: part (d) 3: the JAX package's recovery test on the card
+RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_FAIL_AT = 12, 3, (5, 9)
+RECOVERY_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def _train_batches(cfg) -> list[dict]:
+    """Three seeded numpy batches of part (d) 1: synthetic tokens, and the
+    stub frontends' embeddings where the family has them."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    rng = np.random.default_rng(2)
+    out = []
+    for step in range(TRAIN_STEPS):
+        batch = {"tokens": corpus.batch(step)["tokens"]}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = (rng.standard_normal((TRAIN_B, 16, cfg.d_model)) * 0.02
+                                      ).astype(np.float32)
+        if cfg.family == "encdec":
+            batch["src_embeds"] = (rng.standard_normal((TRAIN_B, 2 * TRAIN_S, cfg.d_model))
+                                   * 0.02).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def _norm(t) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(t.detach().cpu().double()))
+
+
+def _rel_l2(got, want) -> float:
+    """``||got - want|| / ||want||`` (0 where both are zero)."""
+    num = _norm(got.detach().cpu().double() - want.detach().cpu().double())
+    den = _norm(want)
+    return (0.0 if num == 0.0 else float("inf")) if den == 0.0 else num / den
+
+
+def _route_recording():
+    """Every router's ``(probabilities, experts)`` inside, in call order
+    (the layers pass through; a remat'd recompute does not route)."""
+    routes = []
+
+    def on_route(route, params, xt, cfg):
+        probs, ids = route(params, xt, cfg)
+        routes.append((probs.clone(), ids.clone()))
+        return probs, ids
+
+    return _layer_hooks(lambda run, x: run(x), on_route), routes
+
+
+def _route_replay(routes, stats: dict):
+    """Every router's experts inside replaced by the recorded ones, which
+    may differ from its own only at a near tie (``route_ties``)."""
+    routes = list(routes)
+
+    def on_route(route, params, xt, cfg):
+        probs, ids = route(params, xt, cfg)
+        want_probs, want_ids = routes.pop(0)
+        ties, gap = route_ties(probs, ids, want_probs, want_ids, cfg.moe.top_k)
+        stats["near_ties"] += ties
+        stats["routed_rows"] += ids.shape[0]
+        return probs, want_ids.to(ids.device)
+
+    return _layer_hooks(lambda run, x: run(x), on_route), routes
+
+
+def _train_smoke(arch: str, card: str = "cuda") -> dict:
+    """Part (d) 1: three train steps of one smoke config on the card held
+    to the same steps on the CPU (``run_train``; ``card`` names the
+    device, the CPU in a rehearsal)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
+                                   reshard_state, state_leaves)
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch, smoke=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), warmup_steps=1,
+                       total_steps=TRAIN_STEPS, **TRAIN_VARIANTS.get(arch, {}))
+    step_fn = make_train_step(cfg, tcfg)
+    cpu_state = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
+    card_state = reshard_state(copy.deepcopy(cpu_state), card)
+    init = {k: v.detach().clone() for k, v in state_leaves(cpu_state["params"])}
+    batches = _train_batches(cfg)
+    recording, routes = _route_recording()
+    with recording, _compression_records() as cpu_comp:
+        want = [step_fn(cpu_state, _model_batch(b, "cpu"))[1] for b in batches]
+    stats = {"near_ties": 0, "routed_rows": 0}
+    replay, left = _route_replay(routes, stats)
+    with replay, _compression_records() as card_comp:
+        got = [step_fn(card_state, _model_batch(b, torch.device(card)))[1] for b in batches]
+    if left:
+        raise AssertionError(f"train {arch}: {len(left)} CPU router calls not made on the card")
+    check_tie_share(f"train {arch} card vs CPU", stats["near_ties"], stats["routed_rows"])
+    tol = _model_tol(cfg)
+    errs = {"metrics": 0.0, "grad_norm": 0.0, "moments": 0.0, "params": 0.0, "params_leaf": "",
+            "compressed_input": _check_compression(f"train {arch}", card_comp, cpu_comp)}
+    for step, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"train {arch} step {step}: metrics {sorted(g)} / {sorted(w)}")
+        for key in w:
+            if key == "grad_norm":
+                err = _rel_l2(g[key], w[key])
+                if not err <= TRAIN_REL_L2:
+                    raise AssertionError(f"train {arch} step {step}: grad_norm {float(g[key])} "
+                                         f"/ {float(w[key])}")
+                errs["grad_norm"] = max(errs["grad_norm"], err)
+            else:
+                errs["metrics"] = max(errs["metrics"], _close(
+                    f"train {arch} step {step} {key}", g[key], w[key], *tol))
+    cpu_leaves, card_leaves = dict(state_leaves(cpu_state)), dict(state_leaves(card_state))
+    for name, w in cpu_leaves.items():
+        g = card_leaves[name]
+        if name.startswith(("opt.mu", "opt.nu")):
+            err = _rel_l2(g, w)
+            if not err <= TRAIN_REL_L2 * (2 if name.startswith("opt.nu") else 1):
+                raise AssertionError(f"train {arch}: {name} relative L2 error {err}")
+            errs["moments"] = max(errs["moments"], err)
+        elif name.startswith("params"):
+            p0 = init[name[len("params."):]]
+            err = _rel_l2(g.detach().cpu() - p0, w.detach() - p0)
+            if not err <= TRAIN_PARAM_DELTA_REL_L2:
+                raise AssertionError(f"train {arch}: {name}'s change relative L2 error {err}")
+            if err > errs["params"]:
+                errs["params"], errs["params_leaf"] = err, name
+        elif name.startswith("error_feedback"):
+            pass  # each step's, by _check_compression
+        elif not torch.equal(g.cpu(), w):
+            raise AssertionError(f"train {arch}: {name} {g} / {w}")
+    out = {**errs, **stats, "variant": TRAIN_VARIANTS.get(arch, {}),
+           "losses": [float(m["loss"]) for m in got], "wall_s": time.perf_counter() - t0}
+    log(f"[train] {arch} {out['variant'] or ''}: {TRAIN_STEPS} steps card = CPU "
+        f"(metrics at rtol {tol[0]}, atol {tol[1]}: largest {errs['metrics']:.4g}; "
+        f"grad_norm {errs['grad_norm']:.4g}, mu/nu {errs['moments']:.4g} relative L2 of "
+        f"{TRAIN_REL_L2} / {2 * TRAIN_REL_L2}; parameters' change {errs['params']:.4g} relative L2 "
+        f"({errs['params_leaf']}) of {TRAIN_PARAM_DELTA_REL_L2}"
+        + (f"; the compressed gradients {errs['compressed_input']:.4g} relative L2, "
+           f"residuals within half a step" if "grad_compression" in out["variant"] else "")
+        + f"; {stats['near_ties']} of {stats['routed_rows']} routed rows replayed at a near "
+        f"tie); losses {', '.join(f'{x:.4f}' for x in out['losses'])}; {out['wall_s']:.2f} s")
+    return out
+
+
+@contextlib.contextmanager
+def _compression_records():
+    """Each step's ``{leaf: (g + e_old, e_new)}`` of the gradient
+    compression inside: what is quantised (continuous in the gradients)
+    and the residual left."""
+    from repro_torch.train import train_step
+
+    transform, records = train_step.compressed_grad_transform, []
+
+    def recorded(grads, error_buf):
+        out, err = transform(grads, error_buf)
+        records.append({k: (grads[k].float() + error_buf[k], err[k]) for k in grads})
+        return out, err
+
+    train_step.compressed_grad_transform = recorded
+    try:
+        yield records
+    finally:
+        train_step.compressed_grad_transform = transform
+
+
+def _check_compression(label: str, got: list, want: list) -> float:
+    """Each step's quantised input held at ``TRAIN_REL_L2`` leaf by leaf,
+    and on either side each residual within ``TRAIN_HALF_STEP`` of its
+    quantisation step; returns the largest relative L2 error.  (The codes
+    themselves are a rounding: a difference below one step moves them.)"""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} / {len(want)} compressed steps")
+    worst = 0.0
+    for step, (g, w) in enumerate(zip(got, want)):
+        for name, (g32, _) in w.items():
+            err = _rel_l2(g[name][0], g32)
+            if not err <= TRAIN_REL_L2:
+                raise AssertionError(f"{label} step {step}: compressed {name} relative L2 {err}")
+            worst = max(worst, err)
+            for side, (x, e) in (("card", g[name]), ("CPU", (g32, w[name][1]))):
+                step_size = max(float(x.abs().max()) / 127.0, 1e-12)
+                if float(e.abs().max()) > TRAIN_HALF_STEP * step_size:
+                    raise AssertionError(f"{label} step {step}: {side} residual of {name} "
+                                         f"{float(e.abs().max())} past half of {step_size}")
+    return worst
+
+
+def _train_full(argv: list[str] = TRAIN_FULL_ARGV) -> dict:
+    """Part (d) 2: llama3.2-1b at full width through ``launch.train``
+    (``run_train``; ``argv`` the driver's, another in a rehearsal)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build, corpus_launches, corpus_largest = train.build_kb_stream, {}, {}
+
+    def counted(*args, **kwargs):
+        stream = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        corpus_launches.update(ops.launch_counts())
+        corpus_largest.update(ops.largest_launches())
+        return stream
+
+    ops.reset_launch_counts()
+    train.build_kb_stream = counted
+    try:
+        res = train.run(argv)
+    finally:
+        train.build_kb_stream = build
+    total = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = {k: total[k] - corpus_launches[k] for k in total}
+    if any(step_launches.values()):
+        raise AssertionError(f"the train steps launched hand kernels: {step_launches}")
+    missing = [k for k in TRAIN_KERNELS if not corpus_launches[k]]
+    if missing:
+        raise AssertionError(f"the corpus build never launched {missing}: {corpus_launches}")
+    t0 = time.perf_counter()
+    cpu_stream = train.build_kb_stream(res.cfg, res.corpus.cfg, "cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(res.corpus.tokens, cpu_stream.tokens):
+        raise AssertionError("the card's KB token stream differs from the CPU's")
+    if res.corpus.tokens.shape != (KB_STREAM_TOKENS,):
+        raise AssertionError(f"the KB stream has {res.corpus.tokens.shape[0]} tokens, the JAX "
+                             f"package's {KB_STREAM_TOKENS}")
+    first, last = res.loss_trend()
+    if not res.loss_fell:
+        raise AssertionError(f"full-width training: the loss did not fall ({first} -> {last})")
+    cfg = res.cfg
+    walls = res.step_s[1:]
+    step_s = statistics.median(walls)
+    tokens = int(np.prod(res.corpus.batch(0)["tokens"].shape))
+    out = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab_size": cfg.vocab_size,
+        "params": sum(p.numel() for p in res.state["params"].parameters()),
+        "steps": len(res.losses), "tokens_per_step": tokens, "step_s_median": step_s,
+        "step_s": res.step_s, "tokens_per_s": tokens / step_s,
+        "max_memory_allocated": peak, "losses": res.losses, "loss_first_last": [first, last],
+        "corpus_s": res.corpus_s, "corpus_cpu_s": cpu_s, "stream_tokens": KB_STREAM_TOKENS,
+        "corpus_launches": corpus_launches, "corpus_largest": corpus_largest,
+        "step_launches": step_launches,
+    }
+    log(f"[train] {cfg.name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {out['params']} f32 parameters) through launch.train "
+        f"{' '.join(argv)}: corpus build {res.corpus_s:.3f} s on the card "
+        f"({KB_STREAM_TOKENS} tokens, equal to the CPU's, built there in {cpu_s:.3f} s; "
+        f"launches {corpus_launches}, largest {corpus_largest}); step wall median {step_s:.4f} s over steps 2-"
+        f"{len(res.losses)} ({out['tokens_per_s']:.1f} tokens/s at {tokens} tokens a step, "
+        f"first step {res.step_s[0]:.3f} s); max_memory_allocated {peak} B; loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f} (first / last tenth {first:.4f} / "
+        f"{last:.4f}); the steps launched no hand kernel")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the cuBLAS workspace that deterministic algorithms require on the card
+#: (32 MiB, the H100's default size): cuBLAS reads it once, at its first
+#: call, so ``main`` sets it before touching the card
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside, restored after
+    (a cuBLAS call inside raises unless ``CUBLAS_WORKSPACE_CONFIG`` is
+    ``CUBLAS_WORKSPACE``, as ``main`` sets it)."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _train_recovery(card: str = "cuda") -> dict:
+    """Part (d) 3: ``run_with_recovery`` on the card against two
+    uninterrupted runs (``run_train``; ``card`` as for ``_train_smoke``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
+                                   run_with_recovery, state_leaves)
+
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-1b", smoke=True)
+    tcfg = TrainConfig(total_steps=RECOVERY_STEPS, warmup_steps=1)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2))
+    batches = [{k: torch.from_numpy(v).to(card) for k, v in corpus.batch(s).items()}
+               for s in range(RECOVERY_STEPS)]
+    step_fn = make_train_step(cfg, tcfg)
+
+    def fresh():
+        return init_train_state(torch.Generator(card).manual_seed(0), cfg, tcfg)
+
+    def params(state):
+        return [(k, v.detach().float().cpu()) for k, v in state_leaves(state["params"])]
+
+    with _deterministic():
+        runs = []
+        for _ in range(2):
+            state = fresh()
+            for b in batches:
+                state, _ = step_fn(state, b)
+            runs.append(params(state))
+        with tempfile.TemporaryDirectory() as d:
+            state, last, failures = run_with_recovery(
+                step_fn, fresh(), batches, ckpt_dir=d, ckpt_every=RECOVERY_EVERY,
+                fail_at=set(RECOVERY_FAIL_AT))
+    if (failures, last) != (len(RECOVERY_FAIL_AT), RECOVERY_STEPS):
+        raise AssertionError(f"recovery: {failures} failures, last step {last}")
+    spread = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(*runs))
+    err = 0.0
+    for (name, want), (_, got) in zip(runs[0], params(state)):
+        err = max(err, _close(f"recovery {name}", got, want, RECOVERY_TOL["rtol"],
+                              RECOVERY_TOL["atol"]))
+    out = {"failures": failures, "last_step": last, "uninterrupted_spread": spread,
+           "max_abs_err": err, "wall_s": time.perf_counter() - t0}
+    log(f"[train] recovery on the card (deterministic algorithms): {RECOVERY_STEPS} steps, a "
+        f"checkpoint every {RECOVERY_EVERY}, failures injected at {RECOVERY_FAIL_AT}: "
+        f"{failures} recovered, the parameters against an uninterrupted run largest "
+        f"difference {err:.4g} (rtol {RECOVERY_TOL['rtol']}, atol {RECOVERY_TOL['atol']}); "
+        f"two uninterrupted runs apart by {spread:.4g}; {out['wall_s']:.2f} s")
+    return out
+
+
+def run_train() -> dict:
+    """Phase 1a (d). (1) Every architecture at its smoke config, seeded
+    state made on the CPU and copied to the card: three ``make_train_step``
+    steps on the card held to the same steps on the CPU (llama3.2-1b with
+    two microbatches, qwen3-0.6b with int8 gradient compression; the MoE
+    pair with the CPU's experts replayed at near ties): each step's loss
+    and metrics at the model tolerance, ``grad_norm`` and the moments
+    after step 3 at ``TRAIN_REL_L2`` (the second moments at twice it),
+    each parameter leaf's change over the steps at
+    ``TRAIN_PARAM_DELTA_REL_L2``, each step's compressed gradient input
+    at ``TRAIN_REL_L2`` and the residuals within half a quantisation
+    step.  (2) llama3.2-1b at full width through
+    ``repro_torch.launch.train`` on the ``--kb-corpus`` stream: the loss
+    falls, the stream equals the CPU's and has ``KB_STREAM_TOKENS``
+    tokens, the corpus build launches ``TRAIN_KERNELS`` and the steps no
+    hand kernel; step wall, tokens/s, peak memory, losses, corpus wall.
+    (3) ``run_with_recovery`` (12 steps, a checkpoint every 3, failures
+    at steps 5 and 9) against an uninterrupted run at the JAX package's
+    rtol 1e-5, atol 1e-6, under deterministic algorithms (the embedding's
+    and the cross-entropy's backward accumulate with atomics otherwise)."""
+    import torch
+
+    from repro_torch.configs import list_configs
+
+    t_phase = time.perf_counter()
+    archs = {arch: _train_smoke(arch) for arch in list_configs()}
+    t_smoke = time.perf_counter() - t_phase
+    full = _train_full()
+    recovery = _train_recovery()
+    wall = time.perf_counter() - t_phase
+    log(f"[train] phase wall {wall:.1f} s (smoke archs {t_smoke:.1f} s)")
+    out = {"archs": archs, "full": full, "recovery": recovery, "wall_s": wall}
+    log(f"[train] json {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return {**out, "launches": full["corpus_launches"]}
 
 
 # --------------------------------------------------------------------- #
@@ -3499,6 +3928,7 @@ def main() -> int:
                         help="trace the CMat, query and distributed runs once more "
                              "with torch.profiler")
     args = parser.parse_args()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE
     import torch
 
     if not torch.cuda.is_available():
@@ -3519,6 +3949,7 @@ def main() -> int:
     log(f"[build] {len(build.SOURCES)} libraries in {t_build:.1f} s")
 
     models = run_models()
+    train = run_train()
     check_small_workloads()
     check_small_queries()
 
@@ -3570,6 +4001,9 @@ def main() -> int:
     # against a snapshot column as long as the widest it searched, one
     # constant against a long candidate slice
     one_constant = {"n": max(query["one_constant_n"], QUERY_LONG_SLICE), "m": 1}
+    # and the training corpus build's largest launch each (its CMatEngine's
+    # int64 keys)
+    train_largest = train["full"]["corpus_largest"]
     extra = {
         "sorted_member": [
             ("distributed-apply", dist["apply_largest"]["sorted_member"], (torch.int32,)),
@@ -3577,6 +4011,7 @@ def main() -> int:
             ("distributed-4-apply", dist4["apply_largest"]["sorted_member"], (torch.int32,)),
             ("query", query["largest_launch"]["sorted_member"], (torch.int64,)),
             ("query-one-constant", one_constant, (torch.int64,)),
+            ("train", train_largest["sorted_member"], (torch.int64,)),
         ],
         "join_bounds": [
             ("cmat-disjoint", CMAT_DISJOINT, (torch.int64,)),
@@ -3586,8 +4021,10 @@ def main() -> int:
             ("distributed-4-apply", dist4["apply_largest"]["join_bounds"], (torch.int32,)),
             ("query", query["largest_launch"]["join_bounds"], (torch.int64,)),
             ("query-one-key", {"n": 1, "m": query["one_key_m"]}, (torch.int64,)),
+            ("train", train_largest["join_bounds"], (torch.int64,)),
         ],
-        "rle_expand": [("query", query["largest_launch"]["rle_expand"], (torch.int64,))],
+        "rle_expand": [("query", query["largest_launch"]["rle_expand"], (torch.int64,)),
+                       ("train", train_largest["rle_expand"], (torch.int64,))],
         "merge_sorted_unique": [("closure", closure_merge, (torch.int32,))],
         # each of the closure's own launches, the regrow's cut first calls
         # and the one that matches nothing among them
@@ -3645,6 +4082,7 @@ def main() -> int:
 
     paths = {
         "models": models["launches"],
+        "train": train["launches"],
         "cmat": full["launches"],
         "query": query["launches"],
         "provenance": prov["launches"],

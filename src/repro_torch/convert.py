@@ -7,7 +7,9 @@ can be fed to the port's ``match`` / ``sjoin`` / ``xjoin`` / ``elim_dup``
 and to the reference's; :func:`incremental_from_numpy` hands over a whole
 incremental store, so a batch can be applied to the same state in both
 packages.  :func:`model_params_from_numpy` does the same for a model's
-parameter tree.
+parameter tree, and :func:`train_state_from_numpy` for a whole train
+state (parameters, AdamW moments and step, error feedback), so that both
+packages take the same step from the same state.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ __all__ = [
     "incremental_from_numpy",
     "model_params_from_numpy",
     "store_from_numpy",
+    "train_state_from_numpy",
 ]
 
 
@@ -122,15 +125,9 @@ def incremental_from_numpy(program, *, nodes: dict, next_id: int, meta_facts,
     return inc
 
 
-def model_params_from_numpy(cfg, tree) -> dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``models.transformer.Transformer(cfg, ...)``
-    from the JAX package's parameter tree as numpy arrays (each stage's
-    leaves stacked ``(n, ...)`` on the layer axis, a list of stages): the
-    tree flattened with dots, every leaf an f32 tensor on the CPU.  Raises
-    ``ValueError`` unless its names and shapes are exactly those of
-    ``cfg``'s model."""
-    from .models.transformer import Transformer
-
+def _flat_tree(tree) -> dict[str, torch.Tensor]:
+    """A nested dict/list tree of arrays as ``{dotted path: f32 tensor}``
+    on the CPU."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:
@@ -143,9 +140,54 @@ def model_params_from_numpy(cfg, tree) -> dict[str, torch.Tensor]:
             walk(f"{prefix}.{key}" if prefix else str(key), child)
 
     walk("", tree)
+    return out
+
+
+def _model_layout(cfg, out: dict[str, torch.Tensor], what: str) -> dict[str, torch.Tensor]:
+    """``out``, after checking its names and shapes are exactly those of
+    ``cfg``'s model's ``state_dict``."""
+    from .models.transformer import Transformer
+
     want = {k: tuple(v.shape) for k, v in Transformer(cfg, "meta").state_dict().items()}
     got = {k: tuple(v.shape) for k, v in out.items()}
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
-        raise ValueError(f"{cfg.name}: the tree differs from the model's layout: {diff[:8]}")
+        raise ValueError(f"{cfg.name}: the {what} differs from the model's layout: {diff[:8]}")
+    return out
+
+
+def model_params_from_numpy(cfg, tree) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``models.transformer.Transformer(cfg, ...)``
+    from the JAX package's parameter tree as numpy arrays (each stage's
+    leaves stacked ``(n, ...)`` on the layer axis, a list of stages): the
+    tree flattened with dots, every leaf an f32 tensor on the CPU.  Raises
+    ``ValueError`` unless its names and shapes are exactly those of
+    ``cfg``'s model."""
+    return _model_layout(cfg, _flat_tree(tree), "tree")
+
+
+def train_state_from_numpy(cfg, state: dict, device=None) -> dict:
+    """The port's train state (``train.init_train_state``'s layout) from
+    the JAX package's, given as numpy: ``params``, ``opt`` with ``mu``,
+    ``nu`` and ``step``, and ``error_feedback`` where it has one.  The
+    parameters become a ``Transformer`` on ``device`` (``None``: the
+    card), the moments and the error buffer f32 dicts keyed by the
+    parameters' dotted names, the step an int32 scalar."""
+    from .models.transformer import Transformer
+
+    dev = resolve_device(device)
+    net = Transformer(cfg, dev)
+    net.load_state_dict(model_params_from_numpy(cfg, state["params"]))
+
+    def leaves(tree, what):
+        return {k: v.to(dev) for k, v in _model_layout(cfg, _flat_tree(tree), what).items()}
+
+    out = {"params": net, "opt": {
+        "mu": leaves(state["opt"]["mu"], "mu tree"),
+        "nu": leaves(state["opt"]["nu"], "nu tree"),
+        "step": torch.tensor(int(np.asarray(state["opt"]["step"])), dtype=torch.int32,
+                             device=dev),
+    }}
+    if "error_feedback" in state:
+        out["error_feedback"] = leaves(state["error_feedback"], "error-feedback tree")
     return out

@@ -19,7 +19,7 @@ from torch import nn
 
 __all__ = [
     "COMPUTE_DTYPE", "PARAM_DTYPE", "Params", "RMSNorm", "MLP", "Embedding",
-    "init_module_", "param_tree", "as_tree", "tree_map", "tree_leaves",
+    "init_module_", "param_tree", "as_tree", "tree_map", "tree_leaves", "path_key",
     "rmsnorm", "l2norm", "rope_frequencies", "apply_rope", "apply_mrope",
     "swiglu", "mlp_apply", "embed_tokens", "unembed", "softplus",
 ]
@@ -111,6 +111,14 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def path_key(name: str) -> tuple:
+    """Sort key of a dotted leaf name in the JAX package's leaf order
+    (``jax.tree_util``'s: dict keys sorted at every level, a list's items
+    by index): the name's parts, list indices as integers."""
+    return tuple((0, int(part), "") if part.isdigit() else (1, 0, part)
+                 for part in name.split("."))
 
 
 # --------------------------------------------------------------------- #

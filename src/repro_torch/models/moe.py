@@ -13,12 +13,19 @@ path needs a mesh and comes with the sharding slice.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from .layers import MLP, Params, swiglu
 
-__all__ = ["MoE", "route", "moe_apply"]
+__all__ = ["MoE", "route", "route_tape", "router_probs", "moe_apply"]
+
+#: the route tape of the layer this thread is running, if any
+_tape = threading.local()
 
 
 class MoE(Params):
@@ -40,14 +47,55 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, cap + (-cap % 8))
 
 
+def router_probs(params, xt):
+    """The router's softmax probabilities ``(T, E)`` in f32 of the tokens
+    ``xt`` ``(T, d)``."""
+    return torch.softmax((xt @ params["router"].to(xt.dtype)).float(), dim=-1)
+
+
 def route(params, xt, cfg):
     """The router: softmax probabilities ``(T, E)`` in f32 of the tokens
     ``xt`` ``(T, d)``, and each token's top-k experts ``(T, k)``."""
-    probs = torch.softmax((xt @ params["router"].to(xt.dtype)).float(), dim=-1)
+    probs = router_probs(params, xt)
     # top-k by a stable descending sort: of equal probabilities the lower
     # expert id comes first, as in ``jax.lax.top_k`` (bf16 router logits tie)
     expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, : cfg.moe.top_k]
     return probs, expert_ids
+
+
+@contextlib.contextmanager
+def route_tape(experts: list, replay: bool):
+    """Inside, every ``moe_apply`` of this thread takes its probabilities
+    from :func:`router_probs` and its experts from :func:`route` (the
+    experts recorded in ``experts``) or, with ``replay``, from ``experts``
+    in the same order, :func:`route` not called.  A recomputing layer
+    (the transformer's remat) thereby takes the forward's routes,
+    whatever :func:`route` (or a hook in its place) would choose now.
+    :func:`route` runs outside autograd and unseen by dispatch modes, so
+    the forward saves the tensors and makes the calls that the recompute
+    makes (a selective checkpoint replays saved outputs by call order)."""
+    prev = getattr(_tape, "active", None)
+    _tape.active = (experts, replay, [0])
+    try:
+        yield
+    finally:
+        _tape.active = prev
+
+
+def _routed(params, xt, cfg):
+    tape = getattr(_tape, "active", None)
+    if tape is None:
+        return route(params, xt, cfg)
+    experts, replay, at = tape
+    probs = router_probs(params, xt)
+    if replay:
+        ids = experts[at[0]]
+        at[0] += 1
+    else:
+        with torch.no_grad(), _disable_current_modes():
+            ids = route(params, xt, cfg)[1]
+        experts.append(ids)
+    return probs, ids
 
 
 def moe_apply(params, x, cfg):
@@ -58,7 +106,7 @@ def moe_apply(params, x, cfg):
     n_tokens = b * s
     xt = x.reshape(n_tokens, d)
 
-    probs, expert_ids = route(params, xt, cfg)
+    probs, expert_ids = _routed(params, xt, cfg)
     gate_vals = probs.gather(1, expert_ids)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 

@@ -18,12 +18,25 @@ Entry points: :class:`Transformer` (the parameters), ``init_params``,
 ``forward_train`` (loss), ``forward_logits`` (prefill), ``init_cache`` +
 ``decode_step`` (serving; the cache is written in place).  The forwards
 take the module or its ``param_tree``.
+
+While autograd records, each layer of a stage runs under activation
+checkpointing (``REMAT_POLICY``, as in the JAX package's layer scan):
+``"full"`` recomputes the whole layer in the backward pass, ``"dots"``
+saves the projections' products and recomputes the rest.  Under
+``torch.no_grad`` or ``torch.inference_mode`` nothing is checkpointed.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from . import attention, mla, moe, ssm
 from .layers import (
@@ -42,7 +55,8 @@ from .layers import (
 )
 
 __all__ = ["stage_plan", "LAYER_KINDS", "Transformer", "init_params", "forward_hidden",
-           "forward_logits", "forward_train", "init_cache", "decode_step"]
+           "forward_logits", "forward_train", "init_cache", "decode_step", "REMAT_POLICY",
+           "set_remat_policy"]
 
 
 # --------------------------------------------------------------------- #
@@ -232,17 +246,73 @@ def _shared_attn(params, x, cfg, positions):
     return x + attention.attention_apply(sa["attn"], h, cfg, positions, causal=True)
 
 
+#: per-layer remat policy: 'full' recomputes everything in the backward
+#: pass (least memory); 'dots' saves the outputs of the matrix products
+#: without batch dimensions (``aten.mm`` / ``aten.addmm``: the
+#: projections, not the attention scores' ``bmm``), as the JAX package's
+#: ``dots_with_no_batch_dims_saveable``.  Either gives the same values.
+REMAT_POLICY = "full"
+
+
+def set_remat_policy(name: str) -> None:
+    global REMAT_POLICY
+    if name not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {name!r} (full or dots)")
+    REMAT_POLICY = name
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, checkpointed under ``REMAT_POLICY`` while autograd
+    records.  The recompute replays the forward's MoE routes
+    (``moe.route_tape``): a route hook is called once, and the
+    recomputed tensors keep the forward's shapes."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    experts, runs = [], []
+
+    def run(*a):
+        with moe.route_tape(experts, replay=bool(runs)):
+            runs.append(None)
+            return fn(*a)
+
+    extra = {}
+    if REMAT_POLICY == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_saveable)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **extra)
+
+
+def _unstack(stage_params, n_layers: int) -> list:
+    """Each layer's parameters, as views by ``unbind``: under autograd
+    one gradient buffer per stacked leaf, where indexing layer by layer
+    makes one for every layer."""
+    rows = tree_map(lambda a: a.unbind(0), stage_params)
+    return [tree_map(lambda r: r[i], rows) for i in range(n_layers)]
+
+
 def _run_stage(stage_params, kind, x, cfg, positions, params, *, causal=True,
                memory=None, mrope_positions=None, layer_offset=0):
-    """Run a layer stack; returns (x, aux_sum)."""
+    """Run a layer stack, each layer rematerialised (``_remat``); returns
+    (x, aux_sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_layers = tree_leaves(stage_params)[0].shape[0]
     shared = cfg.family == "hybrid" and cfg.attn_every and "shared_attn" in params
-    for i in range(n_layers):
-        x, a = _apply_layer(kind, _layer(stage_params, i), x, cfg, positions, causal=causal,
-                            memory=memory, mrope_positions=mrope_positions)
-        if shared and (layer_offset + i + 1) % cfg.attn_every == 0:
-            x = _shared_attn(params, x, cfg, positions)
+    for i, lp in enumerate(_unstack(stage_params, n_layers)):
+        def body(x, lp=lp, i=i):
+            x, a = _apply_layer(kind, lp, x, cfg, positions, causal=causal, memory=memory,
+                                mrope_positions=mrope_positions)
+            if shared and (layer_offset + i + 1) % cfg.attn_every == 0:
+                x = _shared_attn(params, x, cfg, positions)
+            return x, a
+
+        x, a = _remat(body, x)
         aux = aux + a
     return x, aux
 

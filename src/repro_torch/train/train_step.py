@@ -1,0 +1,129 @@
+"""Train / serve step builders.
+
+``make_train_step`` returns ``(state, batch) -> (state, metrics)``: the
+gradients of ``forward_train`` by autograd (each layer rematerialised,
+``models.transformer.REMAT_POLICY``), accumulated over microbatches in
+f32 as ``g / n_micro``, optionally passed through the int8 compression
+round trip with error feedback, then the AdamW update at the warmup +
+cosine learning-rate scale read at the step counter *before* the update
+(so the first step moves no parameter: its scale is 0).
+
+The state is ``{"params": Transformer, "opt": {"mu", "nu", "step"}[,
+"error_feedback"]}``: the moments and the error buffer are dicts keyed
+by the parameters' dotted names.  The step updates the state in place
+and returns it; at full width the state is four times the model's size.
+
+``make_serve_step`` returns the decode step used by the inference
+shapes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..models import transformer
+from ..optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    compressed_grad_transform,
+    init_error_feedback,
+    warmup_cosine,
+)
+
+__all__ = ["TrainConfig", "init_train_state", "make_train_step",
+           "make_serve_step", "make_prefill_step"]
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    microbatches: int = 1
+    grad_compression: bool = False
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+
+
+def init_train_state(generator: torch.Generator, cfg, train_cfg: TrainConfig) -> dict:
+    """Parameters drawn from ``generator`` on its device, zero moments, a
+    zero step and (with compression) a zero error buffer."""
+    params = transformer.init_params(generator, cfg)
+    named = dict(params.named_parameters())
+    state = {"params": params, "opt": adamw_init(named)}
+    if train_cfg.grad_compression:
+        state["error_feedback"] = init_error_feedback(named)
+    return state
+
+
+def _grads(loss: torch.Tensor, named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """d loss / d leaf for every leaf; zeros for a leaf the loss does not
+    reach (as ``jax.grad`` gives)."""
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(named.items(), grads)}
+
+
+def make_train_step(cfg, train_cfg: TrainConfig):
+    """Build the train step for model config ``cfg``."""
+
+    def train_step(state: dict, batch: dict):
+        named = dict(state["params"].named_parameters())
+        n_micro = train_cfg.microbatches
+        if n_micro > 1:
+            rows = batch["tokens"].shape[0]
+            if rows % n_micro:
+                raise ValueError(f"batch of {rows} rows does not split into {n_micro} "
+                                 f"microbatches")
+            size = rows // n_micro
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in named.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            for i in range(n_micro):
+                micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                micro_loss, _ = transformer.forward_train(state["params"], cfg, micro)
+                with torch.no_grad():
+                    for k, g in _grads(micro_loss, named).items():
+                        grads[k] = grads[k] + g.float() / n_micro
+                    loss = loss + micro_loss / n_micro
+            metrics = {"xent": loss}
+        else:
+            loss, metrics = transformer.forward_train(state["params"], cfg, batch)
+            grads = _grads(loss, named)
+            loss = loss.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+
+        if train_cfg.grad_compression:
+            grads, state["error_feedback"] = compressed_grad_transform(
+                grads, state["error_feedback"])
+
+        lr_scale = warmup_cosine(
+            state["opt"]["step"],
+            warmup=train_cfg.warmup_steps,
+            total=train_cfg.total_steps,
+        )
+        _, _, opt_metrics = adamw_update(train_cfg.optimizer, named, grads, state["opt"],
+                                         lr_scale)
+        return state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_serve_step(cfg):
+    """Decode step: (params, token, cache, cache_len[, memory]) -> ..."""
+
+    def serve_step(params, token, cache, cache_len, memory=None):
+        return transformer.decode_step(params, cfg, token, cache, cache_len, memory=memory)
+
+    return serve_step
+
+
+def make_prefill_step(cfg):
+    """Prefill: full forward returning last-position logits."""
+
+    def prefill_step(params, batch):
+        logits, _ = transformer.forward_logits(params, cfg, batch)
+        return logits[:, -1]
+
+    return prefill_step

@@ -173,7 +173,11 @@ def test_port_imports_neither_jax_nor_reference():
             "examples/distributed_reasoning.py", "configs/__init__.py", "configs/base.py",
             "configs/qwen3_0_6b.py", "models/layers.py", "models/attention.py",
             "models/mla.py", "models/moe.py", "models/ssm.py", "models/transformer.py",
-            "models/model.py", "launch/serve.py", "examples/serve_decode.py"} <= scanned
+            "models/model.py", "launch/serve.py", "examples/serve_decode.py",
+            "optim/__init__.py", "optim/adamw.py", "optim/compress.py", "optim/schedule.py",
+            "data/__init__.py", "data/pipeline.py", "data/kb_corpus.py", "train/__init__.py",
+            "train/train_step.py", "train/checkpoint.py", "train/ft.py", "launch/train.py",
+            "examples/kb_train.py", "examples/elastic_restart.py"} <= scanned
 
 
 @pytest.mark.parametrize(
