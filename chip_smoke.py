@@ -48,7 +48,18 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        the steps none; step wall, tokens/s, peak memory,
                        losses, corpus wall; ``run_with_recovery`` against
                        an uninterrupted run under deterministic
-                       algorithms;
+                       algorithms; (e) sharding: llama3.2-1b at full
+                       width, its state placed by ``state_shardings`` on
+                       the 1x1 mesh over NCCL (DTensors) and its batches
+                       by ``batch_shardings``, 3 steps against 3 plain
+                       steps from the same seed (metrics, grad_norm, each
+                       parameter's change; both step walls), and the
+                       MoE block at qwen2-moe-a2.7b's published width
+                       through the expert-parallel path for a logical
+                       (data 2, model 4) and (data 2, model 8) layout,
+                       each shard's block in turn, against the gather
+                       path by data shard (y, aux, the gradients); no
+                       hand kernel may launch;
 2. small             — ``CMatEngine(fused=True)`` on the card against the
                        same engine on the CPU, on five small workloads; then
                        each again with the derivation journal on, and
@@ -231,7 +242,7 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        more live batch and the 50 queries after it.
 
 Launch counts are zeroed just before each main-path run (phases 1a, 1a (d)'s
-full-width run, 4, 5, 5a,
+full-width run, 1a (e), 4, 5, 5a,
 7 at each shard count, 8, 11-15; phase 13's crashed run and its restore apart) and read just
 after; every kernel of a path must have launched there.
 
@@ -998,8 +1009,7 @@ def _train_smoke(arch: str, card: str = "cuda") -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
-                                   reshard_state, state_leaves)
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step, state_leaves
 
     t0 = time.perf_counter()
     cfg = get_config(arch, smoke=True)
@@ -1007,7 +1017,7 @@ def _train_smoke(arch: str, card: str = "cuda") -> dict:
                        total_steps=TRAIN_STEPS, **TRAIN_VARIANTS.get(arch, {}))
     step_fn = make_train_step(cfg, tcfg)
     cpu_state = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
-    card_state = reshard_state(copy.deepcopy(cpu_state), card)
+    card_state = _moved(copy.deepcopy(cpu_state), card)
     init = {k: v.detach().clone() for k, v in state_leaves(cpu_state["params"])}
     batches = _train_batches(cfg)
     recording, routes = _route_recording()
@@ -1067,6 +1077,18 @@ def _train_smoke(arch: str, card: str = "cuda") -> dict:
         + f"; {stats['near_ties']} of {stats['routed_rows']} routed rows replayed at a near "
         f"tie); losses {', '.join(f'{x:.4f}' for x in out['losses'])}; {out['wall_s']:.2f} s")
     return out
+
+
+def _moved(state, device):
+    """The state tree (dicts, a module of parameters) on ``device``: its
+    tensors copied there, a module moved in place."""
+    import torch
+
+    if isinstance(state, torch.nn.Module):
+        return state.to(device)
+    if isinstance(state, dict):
+        return {k: _moved(v, device) for k, v in state.items()}
+    return state.to(device)
 
 
 @contextlib.contextmanager
@@ -1293,6 +1315,285 @@ def run_train() -> dict:
     log(f"[train] json {json.dumps(out)}")
     torch.cuda.empty_cache()
     return {**out, "launches": full["corpus_launches"]}
+
+
+# --------------------------------------------------------------------- #
+# phase 1a (e): sharding (launch/mesh.py, launch/sharding.py,
+# models/sharding_policy.py, the MoE's EP path, reshard_state)
+# --------------------------------------------------------------------- #
+#: part (e) 1: the full-width steps, at the training driver's batch and
+#: sequence, the plain state's and the placed state's in turn
+SHARD_STEPS, SHARD_B, SHARD_S = 3, 8, 128
+#: part (e) 2: the EP block's logical (data, model) layouts (60 experts
+#: divide by 4; over 8 they pad to 64), and its input, batch x sequence
+EP_LAYOUTS = ((2, 4), (2, 8))
+EP_B, EP_S = 8, 128
+#: the input's scale, the JAX package's EP test's: ``y`` is held at its
+#: absolute 5e-2, a fraction of one bf16 unit at the outputs' magnitude
+EP_X_SCALE = 0.1
+#: the EP block's y against the gather path's, the JAX package's EP test
+#: bound, and its aux at that rtol
+EP_Y_TOL, EP_AUX_RTOL = 5e-2, 5e-2
+
+
+def _sharded_train(arch: str = "llama3.2-1b", *, smoke: bool = False,
+                   card: str = "cuda") -> dict:
+    """Part (e) 1: ``SHARD_STEPS`` train steps of a plain state and of the
+    same state placed by ``state_shardings`` on the 1x1 mesh (its batches
+    by ``batch_shardings``), one run after the other (each state is four
+    copies of the model): the losses and metrics at the model tolerance,
+    ``grad_norm`` at ``TRAIN_REL_L2``, each parameter's change ``p_3 -
+    p_0`` at ``TRAIN_PARAM_DELTA_REL_L2``; both runs' step walls."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.launch.sharding import batch_shardings, state_shardings
+    from repro_torch.models.sharding_policy import set_policy_from_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
+                                   reshard_state, state_leaves)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch, smoke=smoke)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), warmup_steps=1,
+                       total_steps=SHARD_STEPS)
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, SHARD_S, SHARD_B, seed=0))
+    batches = [{k: torch.from_numpy(v).to(card) for k, v in corpus.batch(s).items()}
+               for s in range(SHARD_STEPS)]
+    init_process_group(1, device=card)
+    mesh = make_host_mesh(1, 1)
+    set_policy_from_mesh(mesh)
+    step_fn = make_train_step(cfg, tcfg)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    def run(placed: bool):
+        state = init_train_state(torch.Generator(card).manual_seed(0), cfg, tcfg)
+        p0 = {k: v.detach().clone() for k, v in state_leaves(state["params"])}
+        if placed:
+            state = reshard_state(state, mesh, state_shardings)
+            if not all(isinstance(p, DTensor) for p in state["params"].parameters()):
+                raise AssertionError("sharding: reshard_state left a parameter unplaced")
+        metrics, walls = [], []
+        for b in batches:
+            if placed:
+                sh = batch_shardings(b, mesh)
+                b = {k: sh[k].place(v) for k, v in b.items()}
+            _sync(card)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            walls.append(time.perf_counter() - t0)
+        delta = {k: whole(v) - p0[k] for k, v in state_leaves(state["params"])}
+        del state, p0
+        _empty_cache(card)
+        return metrics, walls, delta
+
+    plain_m, plain_s, plain_d = run(False)
+    placed_m, placed_s, placed_d = run(True)
+    tol = _model_tol(cfg)
+    err_metrics = err_gnorm = err_params = 0.0
+    worst = ""
+    for step, (g, w) in enumerate(zip(placed_m, plain_m)):
+        for key in w:
+            if key == "grad_norm":
+                err = abs(g[key] - w[key]) / abs(w[key])
+                if not err <= TRAIN_REL_L2:
+                    raise AssertionError(f"sharding step {step}: grad_norm {g[key]} / {w[key]}")
+                err_gnorm = max(err_gnorm, err)
+            else:
+                err_metrics = max(err_metrics, _close(
+                    f"sharding step {step} {key}", torch.tensor(g[key]), torch.tensor(w[key]),
+                    *tol))
+    for k, w in plain_d.items():
+        den = float(torch.linalg.vector_norm(w.double()))
+        err = float(torch.linalg.vector_norm((placed_d[k] - w).double())) / den
+        if not err <= TRAIN_PARAM_DELTA_REL_L2:
+            raise AssertionError(f"sharding: {k}'s change relative L2 error {err}")
+        if err >= err_params:
+            err_params, worst = err, k
+    out = {"arch": cfg.name, "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+           "vocab_size": cfg.vocab_size, "batch": SHARD_B, "seq": SHARD_S,
+           "losses_plain": [m["loss"] for m in plain_m],
+           "losses_placed": [m["loss"] for m in placed_m],
+           "step_s_plain": plain_s, "step_s_placed": placed_s,
+           "metrics_max_abs_err": err_metrics, "grad_norm_rel_err": err_gnorm,
+           "params_delta_rel_l2": err_params, "params_delta_leaf": worst,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"[sharding] {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), batch {SHARD_B} x {SHARD_S}: {SHARD_STEPS} steps of the state "
+        f"placed on the 1x1 mesh (DTensor) = {SHARD_STEPS} plain steps (metrics largest "
+        f"{err_metrics:.4g} at rtol {tol[0]}, atol {tol[1]}; grad_norm {err_gnorm:.4g} of "
+        f"{TRAIN_REL_L2}; parameters' change {err_params:.4g} relative L2 ({worst}) of "
+        f"{TRAIN_PARAM_DELTA_REL_L2}); losses plain "
+        f"{', '.join(f'{x:.4f}' for x in out['losses_plain'])}, placed "
+        f"{', '.join(f'{x:.4f}' for x in out['losses_placed'])}; step walls plain "
+        f"{', '.join(f'{x:.3f}' for x in plain_s)} s, placed "
+        f"{', '.join(f'{x:.3f}' for x in placed_s)} s")
+    return out
+
+
+def _sync(card) -> None:
+    import torch
+
+    if torch.device(card).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty_cache(card) -> None:
+    import torch
+
+    if torch.device(card).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _ep_block(layout: tuple[int, int], *, smoke: bool = False, card: str = "cuda") -> dict:
+    """Part (e) 2: one qwen2-moe-a2.7b MoE block (bf16) at ``capacity_factor``
+    8 through the EP path for a logical (data, model) ``layout``, each
+    shard's block run in turn and the model shards summed, against
+    ``_moe_gather`` on the same input, one data shard's tokens at a time
+    (the EP path's aux is the data shards' mean; neither path drops a
+    token at this capacity, so a token's output does not depend on the
+    tokens beside it): ``y`` at ``EP_Y_TOL``, ``aux`` at ``EP_AUX_RTOL``
+    (also against the gather path's aux of the whole batch, as the JAX
+    package's EP test holds it), each parameter's gradient of
+    ``sum(y**2) + aux`` at ``TRAIN_REL_L2`` relative L2.  Each router
+    then multiplies the same rows: the EP path's routers replay the
+    gather's experts where the two split a near tie (``route_ties``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, sharding_policy
+    from repro_torch.models.layers import init_module_
+
+    t0 = time.perf_counter()
+    data, model = layout
+    cfg = get_config("qwen2-moe-a2.7b", smoke=smoke)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    gen = torch.Generator(card).manual_seed(0)
+    block = init_module_(moe.MoE(cfg, None, card), gen)
+    leaves = {k: p.detach().requires_grad_(True) for k, p in block.named_parameters()}
+    x = (torch.randn(EP_B, EP_S, cfg.d_model, generator=gen, device=card)
+         * EP_X_SCALE).to(torch.bfloat16)
+
+    def tree():
+        t = {k: v.to(torch.bfloat16) for k, v in leaves.items() if "." not in k}
+        t["shared"] = {k.split(".", 1)[1]: v.to(torch.bfloat16) for k, v in leaves.items()
+                       if k.startswith("shared.")}
+        return t
+
+    def apply(blocks: int):
+        _sync(card)
+        t_run = time.perf_counter()
+        ys, auxs = zip(*(moe.moe_apply(tree(), xb, cfg) for xb in x.split(EP_B // blocks)))
+        y, aux = torch.cat(ys), torch.stack(auxs).mean()
+        grads = torch.autograd.grad((y.float() ** 2).sum() + aux, list(leaves.values()))
+        _sync(card)
+        return y.detach(), aux.detach(), dict(zip(leaves, grads)), time.perf_counter() - t_run
+
+    routes = []
+    route = moe.route
+
+    def record(params, xt, cfg):
+        probs, ids = route(params, xt, cfg)
+        routes.append((probs.detach(), ids))
+        return probs, ids
+
+    stats = {"near_ties": 0, "routed_rows": 0, "calls": 0}
+
+    def replay(params, xt, cfg):
+        probs, ids = route(params, xt, cfg)
+        want_probs, want_ids = routes[stats["calls"] // model]
+        stats["calls"] += 1
+        ties, _ = route_ties(probs, ids, want_probs, want_ids, cfg.moe.top_k)
+        stats["near_ties"] += ties
+        stats["routed_rows"] += ids.shape[0]
+        return probs, want_ids.to(ids.device)
+
+    serial = moe._moe_ep_serial
+    ep_calls = []
+
+    def counted(*args):
+        ep_calls.append(1)
+        return serial(*args)
+
+    prev = sharding_policy._POLICY
+    try:
+        sharding_policy.clear_policy()
+        with torch.no_grad():
+            aux_whole = moe.moe_apply(tree(), x, cfg)[1]
+        moe.route = record
+        y_g, aux_g, grads_g, gather_s = apply(data)
+        sharding_policy.set_policy("data", "model", {"data": data, "model": model})
+        moe.route, moe._moe_ep_serial = replay, counted
+        y_e, aux_e, grads_e, ep_s = apply(1)
+    finally:
+        moe.route, moe._moe_ep_serial = route, serial
+        sharding_policy._POLICY = prev
+    if len(ep_calls) != 1 or stats["calls"] != data * model:
+        raise AssertionError(f"EP {layout}: the EP path ran {len(ep_calls)} times, "
+                             f"{stats['calls']} shard blocks")
+    label = f"EP {data}x{model}"
+    check_tie_share(label, stats["near_ties"], stats["routed_rows"])
+    y_err = _close(f"{label} y", y_e, y_g, EP_Y_TOL, EP_Y_TOL)
+    aux_err = abs(float(aux_e) - float(aux_g)) / abs(float(aux_g))
+    aux_whole_err = abs(float(aux_e) - float(aux_whole)) / abs(float(aux_whole))
+    if not max(aux_err, aux_whole_err) <= EP_AUX_RTOL:
+        raise AssertionError(f"{label} aux {float(aux_e)} / {float(aux_g)} (by data shard) / "
+                             f"{float(aux_whole)} (whole batch)")
+    grad_err = {}
+    for k, w in grads_g.items():
+        grad_err[k] = float(torch.linalg.vector_norm((grads_e[k] - w).double())
+                            / torch.linalg.vector_norm(w.double()))
+        if not grad_err[k] <= TRAIN_REL_L2:
+            raise AssertionError(f"{label} d/d{k}: relative L2 error {grad_err[k]}")
+    n_model = -(-cfg.moe.n_experts // model) * model
+    out = {"layout": list(layout), "experts": cfg.moe.n_experts, "padded_experts": n_model,
+           "tokens": EP_B * EP_S, "y_max_abs_err": y_err,
+           "aux": [float(aux_e), float(aux_g), float(aux_whole)], "aux_rel_err": aux_err,
+           "aux_whole_rel_err": aux_whole_err, "grad_rel_l2": grad_err, **stats,
+           "ep_s": ep_s, "gather_s": gather_s, "wall_s": time.perf_counter() - t0}
+    log(f"[sharding] EP block ({cfg.name}: d_model {cfg.d_model}, {cfg.moe.n_experts} experts "
+        f"padded to {n_model}, top-{cfg.moe.top_k}, d_expert_ff {cfg.moe.d_expert_ff}, "
+        f"{cfg.moe.n_shared} shared; {EP_B * EP_S} bf16 tokens) at data {data} x model "
+        f"{model}, the {data * model} shard blocks in turn, = the gather path by data shard: "
+        f"y largest {y_err:.4g} (rtol = atol = {EP_Y_TOL}), aux {float(aux_e):.6g} / "
+        f"{float(aux_g):.6g} ({aux_err:.3g} of {EP_AUX_RTOL}; whole batch "
+        f"{float(aux_whole):.6g}, {aux_whole_err:.3g}), gradients' relative L2 "
+        f"largest {max(grad_err.values()):.4g} ({max(grad_err, key=grad_err.get)}) of "
+        f"{TRAIN_REL_L2}; {stats['near_ties']} of {stats['routed_rows']} routed rows replayed "
+        f"at a near tie; forward + backward {ep_s:.3f} s (gather {gather_s:.3f} s)")
+    return out
+
+
+def run_sharding() -> dict:
+    """Phase 1a (e). (1) llama3.2-1b at full width, its state placed on the
+    1x1 mesh over NCCL by ``state_shardings`` (DTensors) and its batches
+    by ``batch_shardings``: ``SHARD_STEPS`` steps against as many plain
+    steps from the same seed (``_sharded_train``); (2) the EP block at
+    qwen2-moe-a2.7b's published width for each of ``EP_LAYOUTS`` against
+    the gather path (``_ep_block``); (3) no hand kernel launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    train = _sharded_train()
+    ep = [_ep_block(layout) for layout in EP_LAYOUTS]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"sharding: the phase launched hand kernels: {launches}")
+    out = {"train": train, "ep": ep, "launches": launches, "wall_s": time.perf_counter() - t0}
+    log(f"[sharding] no hand kernel launched; phase wall {out['wall_s']:.1f} s")
+    log(f"[sharding] json {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -3950,6 +4251,7 @@ def main() -> int:
 
     models = run_models()
     train = run_train()
+    sharding = run_sharding()
     check_small_workloads()
     check_small_queries()
 
@@ -4083,6 +4385,7 @@ def main() -> int:
     paths = {
         "models": models["launches"],
         "train": train["launches"],
+        "sharding": sharding["launches"],
         "cmat": full["launches"],
         "query": query["launches"],
         "provenance": prov["launches"],

@@ -1,6 +1,39 @@
-"""Entry points: :mod:`.serve_datalog`, the query server (static
-and ``--live``), :mod:`.serve`, the model serving loop (prefill and
-greedy decode), and :mod:`.train`, the training driver.  ``python -m
+"""Launch layer: meshes, sharding rules, and the entry points
+:mod:`.serve_datalog`, the query server (static and ``--live``),
+:mod:`.serve`, the model serving loop (prefill and greedy decode), and
+:mod:`.train`, the training driver.  ``python -m
 repro_torch.launch.serve_datalog --help``, ``python -m
 repro_torch.launch.serve --help``, ``python -m repro_torch.launch.train
 --help``."""
+
+from .mesh import (
+    DP_AXES,
+    AbstractMesh,
+    data_axes,
+    init_process_group,
+    make_host_mesh,
+    make_production_mesh,
+)
+from .sharding import (
+    NamedSharding,
+    batch_shardings,
+    cache_shardings,
+    guarded_spec,
+    param_shardings,
+    state_shardings,
+)
+
+__all__ = [
+    "DP_AXES",
+    "AbstractMesh",
+    "NamedSharding",
+    "batch_shardings",
+    "cache_shardings",
+    "data_axes",
+    "guarded_spec",
+    "init_process_group",
+    "make_host_mesh",
+    "make_production_mesh",
+    "param_shardings",
+    "state_shardings",
+]

@@ -7,7 +7,8 @@ Implements the standard serving loop: a batch of requests is prefilled
 token-by-token into the cache (teacher-forced), then decoded greedily.
 Weights and prompts are drawn from ``--seed`` with a generator on the
 device.  Everything runs on ``--device`` (default ``cuda``; without a card
-the driver raises, it never falls back).  :func:`run` returns the served
+the driver raises, it never falls back) as one rank, under the 1x1 mesh's
+sharding policy (see :mod:`.train`).  :func:`run` returns the served
 state for drivers; :func:`main` prints the JAX package's three lines.
 """
 
@@ -22,6 +23,8 @@ import torch
 from ..configs import get_config
 from ..core.util import resolve_device, synchronize
 from ..models.model import Model
+from ..models.sharding_policy import set_policy_from_mesh
+from .mesh import init_process_group, make_host_mesh
 
 __all__ = ["ServeRun", "run", "report", "main"]
 
@@ -60,6 +63,8 @@ def run(argv=None) -> ServeRun:
     args = _parse(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    init_process_group(1, device=device)
+    set_policy_from_mesh(make_host_mesh(1, 1))
     model = Model(cfg, device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     max_len = args.prompt_len + args.gen_len

@@ -8,7 +8,11 @@ Wires every substrate together: config -> model -> data pipeline
 (synthetic, or the KB that the port's ``CMatEngine`` materialises on the
 driver's device, linearised) -> train step -> checkpointing.  Everything
 runs on ``--device`` (default ``cuda``; without a card the driver
-raises, it never falls back); one device, no mesh.  :func:`run` returns
+raises, it never falls back) as one rank: the driver starts a process
+group of one (NCCL on the card, gloo on the CPU), builds the 1x1 mesh
+and installs its sharding policy, as the JAX package does; the state
+stays plain tensors, as the JAX package's stays unplaced, so the
+policy's anchors are no-ops.  :func:`run` returns
 the run for drivers; :func:`main` prints the JAX package's lines and
 returns 0 when the loss fell (the mean of the last tenth of the steps
 below that of the first tenth).
@@ -27,6 +31,7 @@ from ..configs import get_config
 from ..core.util import resolve_device, synchronize
 from ..data import DataConfig, SyntheticCorpus, TokenStream, linearise_materialisation
 from ..models.layers import COMPUTE_DTYPE
+from ..models.sharding_policy import set_policy_from_mesh
 from ..optim import AdamWConfig
 from ..train import (
     AsyncCheckpointer,
@@ -36,6 +41,7 @@ from ..train import (
     load_checkpoint,
     make_train_step,
 )
+from .mesh import init_process_group, make_host_mesh
 
 __all__ = ["KB_SHAPE", "TrainRun", "build_kb_stream", "run", "main"]
 
@@ -109,6 +115,8 @@ def run(argv=None) -> TrainRun:
     args = _parse(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    init_process_group(1, device=device)
+    set_policy_from_mesh(make_host_mesh(1, 1))
     train_cfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr),
         microbatches=args.microbatches,

@@ -1,5 +1,6 @@
 """LM substrate: layers, attention (GQA/MLA), MoE, SSM, composition."""
 
-from . import attention, layers, mla, model, moe, ssm, transformer
+from . import attention, layers, mla, model, moe, sharding_policy, ssm, transformer
 
-__all__ = ["attention", "layers", "mla", "model", "moe", "ssm", "transformer"]
+__all__ = ["attention", "layers", "mla", "model", "moe", "sharding_policy", "ssm",
+           "transformer"]

@@ -19,6 +19,11 @@ Entry points: :class:`Transformer` (the parameters), ``init_params``,
 ``decode_step`` (serving; the cache is written in place).  The forwards
 take the module or its ``param_tree``.
 
+Under a sharding policy (``sharding_policy``) the forwards pin a
+DTensor's layout at the JAX package's four anchor points: the embedded
+tokens and each layer's residual stream ``(batch, seq, -)``, the logits
+``(batch, -, model)``; on plain tensors the anchors are no-ops.
+
 While autograd records, each layer of a stage runs under activation
 checkpointing (``REMAT_POLICY``, as in the JAX package's layer scan):
 ``"full"`` recomputes the whole layer in the backward pass, ``"dots"``
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 from . import attention, mla, moe, ssm
+from .sharding_policy import constrain
 from .layers import (
     COMPUTE_DTYPE,
     MLP,
@@ -306,6 +312,8 @@ def _run_stage(stage_params, kind, x, cfg, positions, params, *, causal=True,
     shared = cfg.family == "hybrid" and cfg.attn_every and "shared_attn" in params
     for i, lp in enumerate(_unstack(stage_params, n_layers)):
         def body(x, lp=lp, i=i):
+            # pin the residual stream: (b@dp, s[, @model if SP], d)
+            x = constrain(x, ("batch", "seq", None))
             x, a = _apply_layer(kind, lp, x, cfg, positions, causal=causal, memory=memory,
                                 mrope_positions=mrope_positions)
             if shared and (layer_offset + i + 1) % cfg.attn_every == 0:
@@ -372,7 +380,7 @@ def forward_hidden(params, cfg, batch):
     params = as_tree(params)
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = embed_tokens(params["embedding"], tokens)
+    x = constrain(embed_tokens(params["embedding"], tokens), ("batch", None, None))
     mrope_positions = None
     memory = None
     if cfg.family == "vlm" and "vision_embeds" in batch:
@@ -389,13 +397,16 @@ def forward_logits(params, cfg, batch):
     """Full-sequence forward -> logits (prefill / eval path)."""
     params = as_tree(params)
     h, aux = forward_hidden(params, cfg, batch)
-    return unembed(params["embedding"], h), aux
+    logits = constrain(unembed(params["embedding"], h), ("batch", None, "model"))
+    return logits, aux
 
 
 def _xent(logits, targets):
     lg = logits.float()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    # both (b, s, 1): a vocab-sharded DTensor's gather stays partial until
+    # the difference, with its mask of the gather's own shape
+    logz = torch.logsumexp(lg, dim=-1, keepdim=True)
+    gold = torch.gather(lg, -1, targets[..., None].long())
     return (logz - gold).mean(), torch.square(logz).mean()
 
 
@@ -405,7 +416,7 @@ def forward_train(params, cfg, batch):
     tokens = batch["tokens"]
     h, aux = forward_hidden(params, cfg, batch)
     h = h[:, -tokens.shape[1]:]  # score only the text span (vlm prefix)
-    logits = unembed(params["embedding"], h)
+    logits = constrain(unembed(params["embedding"], h), ("batch", None, "model"))
     xent, z2 = _xent(logits[:, :-1], tokens[:, 1:])
     zloss = 1e-4 * z2
     loss = xent + zloss + aux

@@ -11,8 +11,8 @@ CPU):
   launcher can migrate its shard (on TPU pods the usual cause is an ECC-
   throttled chip or a slow host NIC).
 * :class:`ElasticPlan` — given surviving host count, picks the largest
-  mesh that divides the global batch; ``reshard_state`` places a state
-  on one device (placement on a mesh comes with sharding).
+  mesh that divides the global batch; ``reshard_state`` re-places a state
+  onto the new mesh.
 * :func:`run_with_recovery` — the supervision loop: step, checkpoint every
   N, on simulated/real failure restore latest checkpoint and continue —
   the integration test kills a step mid-run and asserts bit-exact
@@ -25,7 +25,6 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 from torch import nn
 
 from .checkpoint import AsyncCheckpointer, latest_step, load_checkpoint
@@ -119,20 +118,31 @@ class ElasticPlan:
         return meshes[0]
 
 
-def reshard_state(state, device):
-    """The state tree (dicts, lists, a module of parameters) on
-    ``device``: tensors and numpy arrays moved or copied there, a module
-    moved in place."""
-    def place(node):
-        if isinstance(node, nn.Module):
-            return node.to(device)
-        if isinstance(node, dict):
-            return {k: place(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [place(v) for v in node]
-        return torch.as_tensor(node).to(device)
+def reshard_state(state, mesh, sharding_fn):
+    """Re-place a host-side state tree onto a (new) mesh.
 
-    return place(state)
+    ``sharding_fn(state, mesh)`` (``launch.sharding.state_shardings``,
+    say) gives each leaf its ``NamedSharding``; every tensor or numpy
+    leaf becomes a DTensor of that layout (a DTensor of an old mesh is
+    gathered first), and a module's parameters are replaced in place by
+    such DTensors.  Every rank of the mesh calls it with the same state."""
+    shardings = sharding_fn(state, mesh)
+
+    def place(node, sh):
+        if isinstance(node, nn.Module):
+            for mod_name, mod in node.named_modules():
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    key = f"{mod_name}.{name}" if mod_name else name
+                    setattr(mod, name, nn.Parameter(sh[key].place(p.detach()),
+                                                    requires_grad=p.requires_grad))
+            return node
+        if isinstance(node, dict):
+            return {k: place(v, sh[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [place(v, s) for v, s in zip(node, sh)]
+        return sh.place(node)
+
+    return place(state, shardings)
 
 
 def run_with_recovery(

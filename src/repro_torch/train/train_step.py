@@ -13,15 +13,26 @@ The state is ``{"params": Transformer, "opt": {"mu", "nu", "step"}[,
 by the parameters' dotted names.  The step updates the state in place
 and returns it; at full width the state is four times the model's size.
 
+A sharded state (DTensor leaves, placed by ``launch.sharding``'s
+``state_shardings``, with the batch placed by ``batch_shardings``) runs
+the same step on every rank of its mesh: plain tensors that the model
+makes (positions, masks) count as replicated, each gradient is
+redistributed to its parameter's placements (the data-parallel
+reduction) before the compression and the update, and the metrics come
+back as plain tensors, whole on every rank.
+
 ``make_serve_step`` returns the decode step used by the inference
 shapes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import transformer
 from ..optim import (
@@ -61,8 +72,20 @@ def _grads(loss: torch.Tensor, named: dict[str, torch.Tensor]) -> dict[str, torc
     """d loss / d leaf for every leaf; zeros for a leaf the loss does not
     reach (as ``jax.grad`` gives)."""
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return {k: torch.zeros_like(p) if g is None else g
+    return {k: torch.zeros_like(p) if g is None else _at(g, p)
             for (k, p), g in zip(named.items(), grads)}
+
+
+def _at(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient at its parameter's placements: partial sums
+    reduced, replicated ones sliced."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(cfg, train_cfg: TrainConfig):
@@ -70,6 +93,11 @@ def make_train_step(cfg, train_cfg: TrainConfig):
 
     def train_step(state: dict, batch: dict):
         named = dict(state["params"].named_parameters())
+        sharded = any(isinstance(p, DTensor) for p in named.values())
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            return _step(state, batch, named)
+
+    def _step(state: dict, batch: dict, named: dict):
         n_micro = train_cfg.microbatches
         if n_micro > 1:
             rows = batch["tokens"].shape[0]
@@ -87,12 +115,12 @@ def make_train_step(cfg, train_cfg: TrainConfig):
                     for k, g in _grads(micro_loss, named).items():
                         grads[k] = grads[k] + g.float() / n_micro
                     loss = loss + micro_loss / n_micro
-            metrics = {"xent": loss}
+            metrics = {"xent": _whole(loss)}
         else:
             loss, metrics = transformer.forward_train(state["params"], cfg, batch)
             grads = _grads(loss, named)
             loss = loss.detach()
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
 
         if train_cfg.grad_compression:
             grads, state["error_feedback"] = compressed_grad_transform(
@@ -105,7 +133,8 @@ def make_train_step(cfg, train_cfg: TrainConfig):
         )
         _, _, opt_metrics = adamw_update(train_cfg.optimizer, named, grads, state["opt"],
                                          lr_scale)
-        return state, {"loss": loss, **metrics, **opt_metrics}
+        return state, {"loss": _whole(loss), **metrics,
+                       **{k: _whole(v) for k, v in opt_metrics.items()}}
 
     return train_step
 

@@ -1,9 +1,15 @@
 """The port's examples on the CPU, against the JAX package's engines on the
 same inputs: ``repro_torch.examples.quickstart`` (the paper's running
-example through ``CMatEngine``) and
+example through ``CMatEngine``),
 ``repro_torch.examples.distributed_reasoning`` (the distributed engine,
-one shard per visible device: one here).  Each example checks itself
-against the flat oracle and raises if it differs."""
+one shard per visible device: one here) and
+``repro_torch.examples.query_kb`` (ontology, queries, warm start,
+provenance, MVCC serving) against ``examples/query_kb.py`` run in this
+process.  Each example checks itself and raises if it differs."""
+
+import importlib.util
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -12,7 +18,15 @@ from jax.sharding import Mesh
 from repro.core import CMatEngine as JCMatEngine
 from repro.core.distributed import DistributedEngine as JDistributedEngine
 from repro.core.generators import lubm_like, paper_example
-from repro_torch.examples import distributed_reasoning, quickstart
+from repro_torch.examples import distributed_reasoning, query_kb, quickstart
+
+ROOT = Path(__file__).resolve().parent.parent
+#: query_kb's lines that hold a host time, or that the serving threads'
+#: interleaving decides (the micro-batch counts; hot rules rank by time)
+QUERY_KB_VARYING = re.compile(r"^warm start: |^  R\d+: .* derived, |^serving: \d+ queries in ")
+#: the snapshot's bytes on disk: its manifest holds ``created_unix``,
+#: whose digits vary (the payload and leaf counts are compared)
+QUERY_KB_SNAPSHOT_BYTES = re.compile(r"^snapshot: \d+ bytes")
 
 
 def test_quickstart_matches_reference(capsys):
@@ -46,3 +60,40 @@ def test_distributed_reasoning_matches_reference(capsys):
     assert {p: len(r) for p, r in got.items()} == {
         p: len(r) for p, r in want.items() if len(r)
     }
+
+
+def _reference_query_kb():
+    spec = importlib.util.spec_from_file_location("ref_query_kb", ROOT / "examples" / "query_kb.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_query_kb_matches_reference(capsys):
+    ref = _reference_query_kb()
+    ref.main()
+    want_out = capsys.readouterr().out
+    got = query_kb.main(["--device", "cpu"])
+    got_out = capsys.readouterr().out
+
+    def steady(text):
+        return [QUERY_KB_SNAPSHOT_BYTES.sub("snapshot: N bytes", line)
+                for line in text.splitlines() if not QUERY_KB_VARYING.match(line)]
+
+    assert steady(got_out) == steady(want_out)
+    assert len(steady(got_out)) < len(got_out.splitlines())
+    # every answer, not only the five printed; the proof tree; the epochs
+    program, dataset, dictionary = ref.build_kb()
+    eng = ref.CMatEngine(program)
+    eng.load(dataset)
+    eng.materialise()
+    qe = ref.QueryEngine(eng, dictionary)
+    for text in query_kb.QUERIES:
+        assert got["answers"][text] == qe.decode(qe.answer(text).answers), text
+    want_proof = eng.explain_fact("Person", (dictionary.id_of("student0"),),
+                                  decode=dictionary.term_of)
+    assert got["proof"] == want_proof
+    assert got["serving"]["lease_version"] == 0 and got["serving"]["version"] == 1
+    assert got["serving"]["pinned"] == got["serving"]["before"] == 12
+    assert got["serving"]["fresh"] == 13
+    assert "serving: lease pinned v0 sees 12 knows() answers (was 12), unpinned readers see 13 at v1" in want_out

@@ -469,13 +469,20 @@ class TestFaultTolerance:
             plan.pick(2)
 
     def test_reshard_state_places_every_leaf(self):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch.mesh import init_process_group, make_host_mesh
+        from repro_torch.launch.sharding import state_shardings
+
         cfg = get_config("llama3.2-1b", smoke=True)
         state = init_train_state(torch.Generator().manual_seed(0), cfg,
                                  TrainConfig(grad_compression=True))
-        moved = reshard_state(state, "meta")
+        n_leaves = len(state_leaves(state))
+        init_process_group(1, device="cpu")
+        moved = reshard_state(state, make_host_mesh(1, 1), state_shardings)
         leaves = state_leaves(moved)
-        assert len(leaves) == len(state_leaves(state))
-        assert all(leaf.device.type == "meta" for _, leaf in leaves)
+        assert len(leaves) == n_leaves
+        assert all(isinstance(leaf, DTensor) for _, leaf in leaves)
 
 
 # --------------------------------------------------------------------- #
