@@ -59,7 +59,18 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        (data 2, model 4) and (data 2, model 8) layout,
                        each shard's block in turn, against the gather
                        path by data shard (y, aux, the gradients); no
-                       hand kernel may launch;
+                       hand kernel may launch; (f) roofline: part (d)'s
+                       full-width step counted on the card by
+                       ``repro_torch.roofline.op_cost.count_ops`` (its
+                       warm-up step, not a timed one), whose FLOPs must
+                       equal the dry run's (``launch/dryrun.py``) count of
+                       the same step at the same shape on the 1x1 mesh of
+                       meta DTensors (a process of its own, no card); the
+                       roofline row against the H100's published peaks
+                       beside the measured step wall (compute and memory
+                       terms, bottleneck, model FLOPs and counted FLOPs
+                       over peak over wall), with the card's name and
+                       power limit;
 2. small             — ``CMatEngine(fused=True)`` on the card against the
                        same engine on the CPU, on five small workloads; then
                        each again with the derivation journal on, and
@@ -159,7 +170,10 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        join must each run one kernel and no library scan or
                        sort), the kernel's host time per call, the plain
                        version's time and the bytes bound; the
-                       ``join_bounds`` path sweep;
+                       ``join_bounds`` path sweep, through the tuner
+                       (``kernels/tune.py``, its cache in a temporary
+                       directory): the path it picks at each point beside
+                       the hand-set rule's, a second lookup a cache hit;
 10. serve-small      — the port's server (``repro_torch.launch.serve_datalog``,
                        in-process) at ``--kb lubm --scale 1``, static and
                        ``--live --live-verify``, with ``--provenance
@@ -241,6 +255,10 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        device and host operators; and, within phase 12, one
                        more live batch and the 50 queries after it.
 
+On the card ``join_bounds`` takes the path the tuner picks for its key
+type and size bucket (swept once a bucket); the run keeps the tuner's
+cache in a temporary directory of its own.
+
 Launch counts are zeroed just before each main-path run (phases 1a, 1a (d)'s
 full-width run, 1a (e), 4, 5, 5a,
 7 at each shard count, 8, 11-15; phase 13's crashed run and its restore apart) and read just
@@ -271,9 +289,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-
-#: H100 SXM device memory rate (NVIDIA data sheet), bytes/s
-HBM_BYTES_PER_S = 3.35e12
+#: where the join_bounds tuner keeps its cache (``kernels/tune.py``)
+TUNE_CACHE_ENV = "REPRO_TORCH_TUNE_CACHE"
 
 N_DEPT, N_STUDENTS, N_COURSES = 500, 1_000_000, 10_000
 
@@ -1141,6 +1158,7 @@ def _train_full(argv: list[str] = TRAIN_FULL_ARGV) -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.roofline.op_cost import count_ops
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1153,12 +1171,31 @@ def _train_full(argv: list[str] = TRAIN_FULL_ARGV) -> dict:
         corpus_largest.update(ops.largest_launches())
         return stream
 
+    make_step, step_cost = train.make_train_step, {}
+
+    def counting_step(cfg, train_cfg):
+        """The driver's step, its first call (a warm-up, not timed) under
+        ``count_ops`` (phase 1a (f))."""
+        step = make_step(cfg, train_cfg)
+
+        def call(state, batch):
+            if step_cost:
+                return step(state, batch)
+            out, cost = count_ops(step, state, batch)
+            step_cost.update(flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+                             bytes_written=cost.bytes_written, input_bytes=cost.input_bytes,
+                             temp_bytes=cost.temp_bytes, n_ops=cost.n_ops,
+                             batch_shape=list(batch["tokens"].shape))
+            return out
+
+        return call
+
     ops.reset_launch_counts()
-    train.build_kb_stream = counted
+    train.build_kb_stream, train.make_train_step = counted, counting_step
     try:
         res = train.run(argv)
     finally:
-        train.build_kb_stream = build
+        train.build_kb_stream, train.make_train_step = build, make_step
     total = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     step_launches = {k: total[k] - corpus_launches[k] for k in total}
@@ -1191,7 +1228,7 @@ def _train_full(argv: list[str] = TRAIN_FULL_ARGV) -> dict:
         "max_memory_allocated": peak, "losses": res.losses, "loss_first_last": [first, last],
         "corpus_s": res.corpus_s, "corpus_cpu_s": cpu_s, "stream_tokens": KB_STREAM_TOKENS,
         "corpus_launches": corpus_launches, "corpus_largest": corpus_largest,
-        "step_launches": step_launches,
+        "step_launches": step_launches, "argv": list(argv), "step_cost": step_cost,
     }
     log(f"[train] {cfg.name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab_size}, {out['params']} f32 parameters) through launch.train "
@@ -1593,6 +1630,124 @@ def run_sharding() -> dict:
     log(f"[sharding] no hand kernel launched; phase wall {out['wall_s']:.1f} s")
     log(f"[sharding] json {json.dumps(out)}")
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 1a (f): the roofline of a real step (roofline/, launch/dryrun.py)
+# --------------------------------------------------------------------- #
+#: the dry run of one train step at a driver's config, batch and sequence
+#: on the 1x1 mesh of meta DTensors (a fake group of one rank), as one
+#: JSON record on the last line; argv: the driver's
+DRYRUN_STEP = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, train
+from repro_torch.launch.mesh import make_host_mesh
+
+args = train._parse(sys.argv[1:])
+cfg = get_config(args.arch, smoke=args.smoke)
+shape = ShapeConfig("train_driver", args.seq, args.batch, "train")
+print(json.dumps(dryrun.trace_cell(cfg, shape, lambda: make_host_mesh(1, 1), 1, mesh="1x1")))
+"""
+
+
+def start_step_dryrun(argv: list[str] = TRAIN_FULL_ARGV) -> subprocess.Popen:
+    """The dry run of the training driver's step at ``argv``'s config and
+    shape, started in a process of its own on the host (the fake group is
+    a process's default group; it touches no card), its output in
+    temporary files: it runs beside phases 1a-1a (e)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_STEP, *argv], env=env, cwd=ROOT,
+                            stdout=out, stderr=err)
+    proc.output_files = (out, err)
+    return proc
+
+
+def _roofline_counts(full: dict, proc: subprocess.Popen | None = None) -> dict:
+    """The dry run's count of part (d) 2's step (``full``, from
+    ``_train_full``; ``proc`` its :func:`start_step_dryrun`, started here
+    if none) and the roofline row of the card's count against the
+    step's measured wall.  Raises unless the card's counted FLOPs equal
+    the dry run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.roofline import analysis
+
+    cost = full["step_cost"]
+    args = train._parse(full["argv"])
+    t0 = time.perf_counter()
+    proc = proc or start_step_dryrun(full["argv"])
+    proc.wait(timeout=300)
+    stdout, stderr = (f.seek(0) or f.read().decode() for f in proc.output_files)
+    if proc.returncode or proc.args[3:] != full["argv"]:
+        raise RuntimeError(f"the dry run of the step {proc.args[3:]} failed: {stderr[-3000:]}")
+    dry = json.loads(stdout.strip().splitlines()[-1])
+    dry_s = time.perf_counter() - t0
+    if dry["flops_per_device"] != cost["flops"]:
+        raise AssertionError(f"the card counted {cost['flops']} FLOPs in a step, the 1x1 dry "
+                             f"run {dry['flops_per_device']}")
+    if dry["collective_total_per_device"]:
+        raise AssertionError(f"the 1x1 dry run counted collectives: {dry}")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    tokens = args.batch * args.seq
+    if cost["batch_shape"] != [args.batch, args.seq]:
+        raise AssertionError(f"the counted step's batch {cost['batch_shape']} is not the "
+                             f"driver's {[args.batch, args.seq]}")
+    wall = full["step_s_median"]
+    row = analysis.RooflineRow(
+        arch=cfg.name, shape=f"train {args.batch}x{args.seq}", mesh="1x1",
+        compute_s=cost["flops"] / analysis.PEAK_FLOPS, memory_s=cost["hbm_bytes"] / analysis.HBM_BW,
+        collective_s=0.0, model_flops_per_dev=6.0 * cfg.param_count() * tokens,
+        hlo_flops_per_dev=cost["flops"], temp_bytes=cost["temp_bytes"])
+    return {
+        "arch": cfg.name, "batch": args.batch, "seq": args.seq, "card": cost,
+        "dryrun": dry, "dryrun_s": dry_s, "step_s": wall,
+        "compute_s": row.compute_s, "memory_s": row.memory_s, "bottleneck": row.bottleneck,
+        "model_flops": row.model_flops_per_dev, "useful_ratio": row.useful_ratio,
+        "roofline_fraction": row.roofline_fraction,
+        "mfu": row.model_flops_per_dev / analysis.PEAK_FLOPS / wall,
+        "counted_flops_share": cost["flops"] / analysis.PEAK_FLOPS / wall,
+        "peak_flops": analysis.PEAK_FLOPS, "hbm_bw": analysis.HBM_BW,
+        "table": analysis.format_table([row]),
+    }
+
+
+def run_roofline(train: dict, dryrun: subprocess.Popen | None = None) -> dict:
+    """Phase 1a (f). (1) The FLOPs ``count_ops`` counted in the warm-up step
+    of part (d) 2's full-width llama3.2-1b run on the card equal the dry
+    run's count of the same step at the same shape on the 1x1 mesh of
+    meta DTensors (:func:`_roofline_counts`; ``dryrun`` the process
+    counting it, started before phase 1a); (2) the roofline row of the
+    card's count beside the step's measured median wall: the compute and
+    memory terms over the H100's published peaks
+    (``repro_torch.roofline.analysis``), the bottleneck, the model FLOPs
+    (6 N T) over the peak over the wall, and the counted FLOPs over the
+    peak over the wall, with the card's name and power limit.  The join
+    bounds tuner's sweep runs in phase 9 (``sweep_join_bounds``)."""
+    t0 = time.perf_counter()
+    out = _roofline_counts(train["full"], dryrun)
+    out["card_name_power"] = nvidia_smi()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[roofline] {out['arch']} train step {out['batch']}x{out['seq']}: counted on the card "
+        f"{out['card']['flops']:.6e} FLOPs, {out['card']['hbm_bytes']:.6e} B moved, peak live "
+        f"{out['card']['temp_bytes']:.6e} B, {out['card']['n_ops']} ops; the 1x1 dry run "
+        f"{out['dryrun']['flops_per_device']:.6e} FLOPs (equal), "
+        f"{out['dryrun']['hbm_bytes_per_device']:.6e} B (traced in {out['dryrun']['trace_s']} s; "
+        f"waited for {out['dryrun_s']:.1f} s here)")
+    log(f"[roofline] against {out['peak_flops']:.4g} FLOP/s and {out['hbm_bw']:.4g} B/s "
+        f"({out['card_name_power']}): compute {out['compute_s'] * 1e3:.4f} ms, memory "
+        f"{out['memory_s'] * 1e3:.4f} ms, bottleneck {out['bottleneck']}; measured step "
+        f"{out['step_s'] * 1e3:.4f} ms: model FLOPs {out['model_flops']:.6e} over peak over wall "
+        f"{100 * out['mfu']:.3f} %, counted FLOPs over peak over wall "
+        f"{100 * out['counted_flops_share']:.3f} %")
+    for line in out["table"].splitlines():
+        log(f"[roofline] {line}")
+    log(f"[roofline] phase wall {out['wall_s']:.1f} s, smoke total so far "
+        f"{time.perf_counter() - _T0:.1f} s")
+    log(f"[roofline] json {json.dumps(out)}")
     return out
 
 
@@ -2197,16 +2352,17 @@ def _check_paths_ran(label, dtype, args, calls) -> None:
     from repro_torch.kernels.join_bounds import PATHS, route
 
     n, m = args[0].shape[0], args[1].shape[0]
+    routed = route(n, m, args[0].dtype, args[0].device)
     want = dict.fromkeys(k for ks in PATH_KERNELS.values() for k in ks)
     for k in want:
-        want[k] = sum(k in PATH_KERNELS[p] for p in (route(n, m), *PATHS)) if n and m else 0
+        want[k] = sum(k in PATH_KERNELS[p] for p in (routed, *PATHS)) if n and m else 0
     for _ in range(TRACE_TRIES):
         _, ran = device_ms(lambda: [c() for c in calls], reps=5)
         got = {k: round(sum(c for key, c in ran.items() if k in key)) for k in want}
         if got == want:
             return
     raise AssertionError(f"join_bounds {dtype} {label} ({n} x {m}, routed "
-                         f"{route(n, m)}): kernels run {got}, not {want}")
+                         f"{routed}): kernels run {got}, not {want}")
 
 
 def _check_join_ran(label, args, call) -> None:
@@ -2271,6 +2427,8 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     alternating turns (event-timed medians), their device-only times under
     the profiler, the kernel's host time per call, the plain version's
     time, and the bytes bound of these inputs."""
+    from repro_torch.roofline.analysis import HBM_BW
+
     library = _library_call(name, args)
     call = main_path_call(name, kernel, args)
     ms, library_ms = alternating_ms(call, library)
@@ -2294,7 +2452,7 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
         "library_device_ms": device_ms(library)[0],
         "host_ms": host_ms(call),
         "plain_ms": cuda_ms(lambda: plain(*args)),
-        "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BW * 1e3,
         "bound_by": "bytes",
     }
     log(f"[kernels] {name} {entry['dtype']} {label} {shape}: {entry}")
@@ -2376,32 +2534,66 @@ PATH_SWEEP = ([("random", 1 << k, 1 << k) for k in (16, 17, 18, 19, 20, 22)]
               + [("15-bit", 1 << k, 1 << k) for k in (17, 18, 19)])
 
 
+@contextlib.contextmanager
+def _tune_cache(path: Path):
+    """The join_bounds tuner reads and writes ``path`` inside (its
+    in-process mirror dropped on entry and on exit)."""
+    from repro_torch.kernels import tune
+
+    saved = os.environ.get(TUNE_CACHE_ENV)
+    os.environ[TUNE_CACHE_ENV] = str(path)
+    tune._cache = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(TUNE_CACHE_ENV, None)
+        else:
+            os.environ[TUNE_CACHE_ENV] = saved
+        tune._cache = None
+
+
 def sweep_join_bounds(dev) -> list[dict]:
     """Every ``join_bounds`` path at each :data:`PATH_SWEEP` point, in both
-    key types: each held against
-    the plain version, then event-timed (:func:`cuda_ms`) and timed on
-    the device alone (:func:`device_ms`); and the path :func:`route`
-    picks there."""
+    key types: each held against the plain version, then event-timed
+    (:func:`cuda_ms`) and timed on the device alone (:func:`device_ms`);
+    and the path the tuner (``kernels/tune.py``, its cache in a temporary
+    directory, empty at the start) picks there beside the hand-set rule's
+    (``route`` off the card): the first ``get_blocks`` of a size bucket
+    sweeps it, a second at the same point must be a cache hit."""
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.join_bounds import PATHS, join_bounds_by, route
+    from repro_torch.kernels import ops, ref, tune
+    from repro_torch.kernels.join_bounds import PATHS, join_bounds_by
+    from repro_torch.obs import get_registry
 
+    reg = get_registry()
     points = []
-    for dtype in (torch.int32, torch.int64):
-        rng = np.random.default_rng([ops.KERNELS.index("join_bounds"), dtype.itemsize, 3])
-        for keys, n, m in PATH_SWEEP:
-            l, r = _search_inputs(n, m, dtype, dev, rng, keys)
-            want = ref.join_bounds(l, r)
-            point = {"keys": keys, "n": n, "m": m, "dtype": str(dtype)[6:],
-                     "routed": route(n, m)}
-            for path in PATHS:
-                call = lambda p=path: join_bounds_by(l, r, p)  # noqa: E731
-                _compare("join_bounds", f"sweep {n} x {m} {path}", dtype, list(call()), want)
-                point[path] = {"ms": cuda_ms(call), "device_ms": device_ms(call, reps=10)[0]}
-            log(f"[sweep] join_bounds {point}")
-            points.append(point)
-            del l, r, want
+    with tempfile.TemporaryDirectory() as tmp, _tune_cache(Path(tmp) / "sweep.json"):
+        for dtype in (torch.int32, torch.int64):
+            rng = np.random.default_rng([ops.KERNELS.index("join_bounds"), dtype.itemsize, 3])
+            for keys, n, m in PATH_SWEEP:
+                l, r = _search_inputs(n, m, dtype, dev, rng, keys)
+                want = ref.join_bounds(l, r)
+                reg.reset("kernels.tune.")
+                tuned = tune.get_blocks("join_bounds", dtype, n, device=dev)["path"]
+                swept = reg.snapshot("kernels.tune.").get("kernels.tune.sweeps", 0)
+                again = tune.get_blocks("join_bounds", dtype, n, device=dev)["path"]
+                hits = reg.snapshot("kernels.tune.").get("kernels.tune.cache_hits", 0)
+                if again != tuned or hits != 1 + (not swept):
+                    raise AssertionError(f"tune: {n} {dtype} gave {tuned} then {again}, "
+                                         f"{hits} cache hits")
+                point = {"keys": keys, "n": n, "m": m, "dtype": str(dtype)[6:],
+                         "routed": tune.default_blocks("join_bounds", n)["path"],
+                         "tuned": tuned, "swept": bool(swept),
+                         "bucket": tune.size_bucket(n)}
+                for path in PATHS:
+                    call = lambda p=path: join_bounds_by(l, r, p)  # noqa: E731
+                    _compare("join_bounds", f"sweep {n} x {m} {path}", dtype, list(call()), want)
+                    point[path] = {"ms": cuda_ms(call), "device_ms": device_ms(call, reps=10)[0]}
+                log(f"[sweep] join_bounds {point}")
+                points.append(point)
+                del l, r, want
     return points
 
 
@@ -4057,6 +4249,7 @@ def check_server_launches(dev, runs: dict[str, dict]) -> dict[str, list]:
 
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
+    from repro_torch.roofline.analysis import HBM_BW
 
     out: dict[str, list] = {}
     for name in ("sorted_member", "join_bounds", "rle_expand"):
@@ -4080,7 +4273,7 @@ def check_server_launches(dev, runs: dict[str, dict]) -> dict[str, list]:
                 "library_device_ms": None,
                 "host_ms": host_ms(call),
                 "plain_ms": cuda_ms(lambda: plain(*args)),
-                "bound_ms": _bytes(name, args, 8) / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": _bytes(name, args, 8) / HBM_BW * 1e3,
                 "bound_by": "bytes",
                 "max_abs_err": err,
             }
@@ -4240,6 +4433,9 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not beside {ROOT}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # the join_bounds tuner's cache lives with this run, not in the home
+    tune_dir = tempfile.TemporaryDirectory(prefix="repro_torch_tune_")
+    os.environ[TUNE_CACHE_ENV] = str(Path(tune_dir.name) / "cuda_tune.json")
     from repro_torch.core.flat import flat_seminaive
     from repro_torch.core.generators import lubm_like
     from repro_torch.kernels import build, ops
@@ -4249,9 +4445,17 @@ def main() -> int:
     t_build = build.build()
     log(f"[build] {len(build.SOURCES)} libraries in {t_build:.1f} s")
 
-    models = run_models()
-    train = run_train()
-    sharding = run_sharding()
+    # phase 1a (f)'s dry run needs no card: it runs beside phases 1a-1a (e)
+    step_dryrun = start_step_dryrun()
+    try:
+        models = run_models()
+        train = run_train()
+        sharding = run_sharding()
+        run_roofline(train, step_dryrun)
+    finally:
+        if step_dryrun.poll() is None:
+            step_dryrun.kill()
+            step_dryrun.wait()
     check_small_workloads()
     check_small_queries()
 
@@ -4428,6 +4632,7 @@ def main() -> int:
             "timings": num["timings"],
             **({"path_sweep": num["path_sweep"]} if "path_sweep" in num else {}),
         })
+    tune_dir.cleanup()
     log("[total] done")
     print(json.dumps({"kernels": kernels_line}))
     print(nvidia_smi())

@@ -534,11 +534,17 @@ class DistributedEngine:
                                  dtype=_I32, device=rows.device)
             buckets[slot] = torch.where(ok[:, None], rows[order], EMPTY)
             sent.append(buckets[: n * slots].view(n, slots, rows.shape[1]))
+        return self._deliver(sent), dropped
+
+    def _deliver(self, sent: list[torch.Tensor]) -> list[tuple]:
+        """The all-to-all: destination ``d`` receives bucket ``d`` of every
+        source ``sent[s]`` (``(n_shards, slots, arity)``), in source order;
+        its ``(rows, valid)``."""
         out = []
         for d, dev in enumerate(self.devices):
             rows = torch.cat([b[d].to(dev) for b in sent])
             out.append((rows, rows[:, 0] != EMPTY))
-        return out, dropped
+        return out
 
     @staticmethod
     def _side_aligned(atom, key) -> bool:

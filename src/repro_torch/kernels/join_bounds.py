@@ -3,7 +3,7 @@
 Port of ``repro/kernels/join_bounds.py::join_bounds`` (TPU body
 ``_bounds_kernel``) as the hand-written CUDA kernel ``csrc/join_bounds.cu``,
 by one of three paths (:data:`PATHS`) that :func:`route` picks by the
-number of left keys: for many, the key span of the right keys cut into
+number of left keys (on a card through the tuner, :mod:`.tune`): for many, the key span of the right keys cut into
 equal buckets, an exact table of where each bucket starts built per
 call, and both bounds of a left key read from its one bucket; for fewer,
 a thread per left key searching all of the right keys; for very few, a
@@ -35,14 +35,21 @@ PATHS = ("table", "warp", "thread")
 _SEARCH_TBITS = {"warp": -1, "thread": -2}
 
 
-def route(n: int, m: int) -> str:
+def route(n: int, m: int, dtype: torch.dtype | None = None, device=None) -> str:
     """The path of :data:`PATHS` that a call with ``n`` left and ``m``
-    right keys takes."""
-    if n <= WARP_KEYS or not m:
+    right keys takes: an empty right side the warp path; on a card
+    (``device`` a CUDA device) the path the tune cache picks for ``dtype``
+    and ``n``'s size bucket (:func:`.tune.get_blocks`, swept once on a
+    miss); elsewhere the hand-set rule (``tune.DEFAULTS``: at most
+    :data:`WARP_KEYS` left keys the warp path, at most
+    :data:`THREAD_KEYS` the thread path, more the table)."""
+    from . import tune
+
+    if not m:
         return "warp"
-    if n <= THREAD_KEYS:
-        return "thread"
-    return "table"
+    if device is not None and torch.device(device).type == "cuda":
+        return tune.get_blocks("join_bounds", dtype, n, device=device)["path"]
+    return tune.default_blocks("join_bounds", n)["path"]
 
 
 def _check(l_keys: torch.Tensor, r_sorted: torch.Tensor) -> None:
@@ -59,22 +66,26 @@ def join_bounds(l_keys: torch.Tensor, r_sorted: torch.Tensor):
     _check(l_keys, r_sorted)
     if l_keys.is_cpu:
         return ref.join_bounds(l_keys, r_sorted)
-    return _launch(l_keys, r_sorted, route(l_keys.shape[0], r_sorted.shape[0]))
+    return _launch(l_keys, r_sorted,
+                   route(l_keys.shape[0], r_sorted.shape[0], l_keys.dtype, l_keys.device))
 
 
-def join_bounds_by(l_keys: torch.Tensor, r_sorted: torch.Tensor, path: str):
+def join_bounds_by(l_keys: torch.Tensor, r_sorted: torch.Tensor, path: str, *,
+                   meter: bool = True):
     """:func:`join_bounds` on the card by the named path of :data:`PATHS`,
     whatever the sizes: every path gives the same spans, so that each can
-    be held against the plain version and timed against the others."""
+    be held against the plain version and timed against the others.
+    ``meter=False`` leaves the launch out of the launch meter (the tuner's
+    sweep)."""
     _check(l_keys, r_sorted)
     if path not in PATHS:
         raise ValueError(f"join_bounds: no path {path!r}; one of {PATHS}")
     if l_keys.is_cpu:
         raise ValueError("join_bounds: the kernel's paths run on the card only")
-    return _launch(l_keys, r_sorted, path)
+    return _launch(l_keys, r_sorted, path, meter)
 
 
-def _launch(l_keys: torch.Tensor, r_sorted: torch.Tensor, path: str):
+def _launch(l_keys: torch.Tensor, r_sorted: torch.Tensor, path: str, meter: bool = True):
     n, m = l_keys.shape[0], r_sorted.shape[0]
     # lo and hi as two allocations (each starts on a 16-byte boundary for
     # the kernel's vector stores): on the card's host two allocations cost
@@ -96,5 +107,6 @@ def _launch(l_keys: torch.Tensor, r_sorted: torch.Tensor, path: str):
             l_keys.data_ptr(), n, r_sorted.data_ptr(), m, lo.data_ptr(), hi.data_ptr(),
             None if table is None else table.data_ptr(), tbits,
         )
-        ops.note_launch("join_bounds", n=n, m=m)
+        if meter:
+            ops.note_launch("join_bounds", n=n, m=m)
     return lo, hi

@@ -1,10 +1,12 @@
 """Launch layer: meshes, sharding rules, and the entry points
 :mod:`.serve_datalog`, the query server (static and ``--live``),
 :mod:`.serve`, the model serving loop (prefill and greedy decode), and
-:mod:`.train`, the training driver.  ``python -m
-repro_torch.launch.serve_datalog --help``, ``python -m
+:mod:`.train`, the training driver, and the dry runs :mod:`.dryrun`
+(every model cell on a fake group of 256 or 512 ranks) and
+:mod:`.dryrun_datalog` (a reasoning round at 256 and 512 shards).
+``python -m repro_torch.launch.serve_datalog --help``, ``python -m
 repro_torch.launch.serve --help``, ``python -m repro_torch.launch.train
---help``."""
+--help``, ``python -m repro_torch.launch.dryrun --help``."""
 
 from .mesh import (
     DP_AXES,

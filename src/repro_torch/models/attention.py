@@ -12,9 +12,13 @@ place (at ``cache_len``) and returns them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .layers import Params, apply_mrope, apply_rope, l2norm
+from .sharding_policy import heads_mesh_dim
 
 __all__ = ["NEG_INF", "Attention", "chunked_attention", "attention_apply",
            "attention_decode"]
@@ -37,7 +41,28 @@ class Attention(Params):
 
 def project(x, w):
     """``einsum("bsd,dhk->bshk")``."""
-    return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    w = w.to(x.dtype)
+    if isinstance(w, DTensor) and any(p.is_shard(w.ndim - 1) for p in w.placements):
+        return _project_gathered(x, w)
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+def _project_gathered(x, w):
+    """:func:`project` of a weight whose head_dim is sharded (too few kv
+    heads to shard them), on local tensors: DTensor would split the
+    einsum's flattened (heads, head_dim) output over an axis that the heads
+    cannot be split back from.  Every rank gathers the weight (a k or v
+    projection, small) whole and projects its own tokens; the output keeps
+    the tokens' layout, and the weight's gradient is a partial sum over the
+    ranks that hold other tokens."""
+    mesh = x.device_mesh
+    x = x.redistribute(mesh, tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+                                   for p in x.placements))
+    w_loc = w.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=tuple(Partial() if p.is_shard() else Replicate()
+                              for p in x.placements))
+    y = torch.einsum("bsd,dhk->bshk", x.to_local(), w_loc)
+    return DTensor.from_local(y, mesh, x.placements)
 
 
 def out_project(out, wo):
@@ -68,6 +93,9 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0):
     q: (b, s_q, h, hd); k, v: (b, s_kv, n_kv, hd).  GQA is expressed by
     reshaping q to (b, s, n_kv, group, hd) so the einsum never tiles KV.
     """
+    if isinstance(q, DTensor):
+        return _on_local_heads(functools.partial(chunked_attention, causal=causal, chunk=chunk,
+                                                 q_offset=q_offset), q, k, v)
     b, s_q, h, hd = q.shape
     n_kv = k.shape[2]
     group = h // n_kv
@@ -104,17 +132,61 @@ def attention_decode(params, x, cfg, cache_k, cache_v, cache_len: int, *,
     x: (b, 1, d); cache_k/v: (b, S, n_kv, hd), written in place at
     ``cache_len`` — the number of valid entries before this token.
     """
-    dtype = x.dtype
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions, mrope_positions)
     cache_k[:, cache_len] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, cache_len] = v_new[:, 0].to(cache_v.dtype)
+    if isinstance(q, DTensor):
+        out = _on_local_heads(functools.partial(_decode_attend, cache_len=cache_len),
+                              q, cache_k, cache_v)
+    else:
+        out = _decode_attend(q, cache_k, cache_v, cache_len)
+    return out_project(out, params["wo"]), cache_k, cache_v
+
+
+def _decode_attend(q, cache_k, cache_v, cache_len: int):
+    """One query position against the cache's first ``cache_len + 1``."""
+    dtype = q.dtype
     b, _, h, hd = q.shape
     n_kv = cache_k.shape[2]
     qg = q.reshape(b, 1, n_kv, h // n_kv, hd) * hd**-0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.to(dtype)).float()
-    valid = torch.arange(cache_k.shape[1], device=x.device) <= cache_len
+    valid = torch.arange(cache_k.shape[1], device=q.device) <= cache_len
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(dtype)).reshape(b, 1, h, hd)
-    return out_project(out, params["wo"]), cache_k, cache_v
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(dtype)).reshape(b, 1, h, hd)
+
+
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention over ``(b, s, heads, hd)`` tensors) on
+    each rank's local tensors: its batch shard, its query heads where they
+    divide the ``model`` axis, and the kv heads those group onto, with
+    the sequences gathered.  The queries' grouping reshape splits the
+    heads dimension, which DTensor cannot do where the heads are sharded
+    over more ranks than there are kv heads, and whose redistributions
+    it plans slowly on a three-axis mesh; every op of an attention is
+    local to a batch shard and a kv group.  The kv gradients are partial
+    sums over ``model`` where each rank holds kv heads that others hold
+    too."""
+    mesh = q.device_mesh
+    heads = heads_mesh_dim(mesh, q.shape[2])
+    q_at = tuple(Shard(2) if i == heads else Shard(0) if p.is_shard(0) else Replicate()
+                 for i, p in enumerate(q.placements))
+    kv_heads_split = heads is not None and k.shape[2] % mesh.size(heads) == 0
+    kv_at = tuple(Replicate() if i == heads and not kv_heads_split else p
+                  for i, p in enumerate(q_at))
+    kv_grad = tuple(Partial() if i == heads and not kv_heads_split else p
+                    for i, p in enumerate(q_at))
+    q_loc = q.redistribute(mesh, q_at).to_local()
+    k_loc = k.redistribute(mesh, kv_at).to_local(grad_placements=kv_grad)
+    v_loc = v.redistribute(mesh, kv_at).to_local(grad_placements=kv_grad)
+    if heads is not None and not kv_heads_split:
+        group = q.shape[2] // k.shape[2]
+        h_loc = q_loc.shape[2]
+        h0 = mesh.get_local_rank(heads) * h_loc
+        lo, hi = h0 // group, (h0 + h_loc - 1) // group + 1
+        if h_loc % (hi - lo) or (hi - lo > 1 and h_loc != group * (hi - lo)):
+            raise ValueError(f"{h_loc} query heads a rank do not group onto whole kv heads "
+                             f"({q.shape[2]} heads, {k.shape[2]} kv heads)")
+        k_loc, v_loc = k_loc[:, :, lo:hi], v_loc[:, :, lo:hi]
+    return DTensor.from_local(fn(q_loc, k_loc, v_loc), mesh, q_at)

@@ -9,10 +9,14 @@ computed directly against the cached latent.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .attention import NEG_INF, out_project, project
 from .layers import Params, RMSNorm, apply_rope, rmsnorm
+from .sharding_policy import heads_mesh_dim
 
 __all__ = ["MLA", "mla_apply", "mla_decode"]
 
@@ -51,17 +55,27 @@ def _project_latents(params, x, cfg, positions):
 def mla_apply(params, x, cfg, positions, *, causal: bool = True):
     """Training / prefill path: materialise per-head K/V and attend."""
     m = cfg.mla
-    dtype = x.dtype
     q_nope, q_rope, c_kv, k_rope = _project_latents(params, x, cfg, positions)
     k_nope = project(c_kv, params["wk_b"])
     v = project(c_kv, params["wv_b"])
 
-    s = q_nope.shape[1]
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    chunk = min(cfg.attn_chunk, s)
+    chunk = min(cfg.attn_chunk, q_nope.shape[1])
+    attend = functools.partial(_attend, scale=scale, chunk=chunk, causal=causal)
+    if isinstance(q_nope, DTensor):
+        out = _on_local_heads(attend, (q_nope, q_rope, k_nope, v), (k_rope,))
+    else:
+        out = attend(q_nope, q_rope, k_nope, v, k_rope)
+    return out_project(out, params["wo"])
+
+
+def _attend(q_nope, q_rope, k_nope, v, k_rope, *, scale: float, chunk: int, causal: bool):
+    """Query-chunked attention over per-head K/V and the shared RoPE key."""
+    dtype = q_nope.dtype
+    s = q_nope.shape[1]
     n_chunks = max(s // chunk, 1)
     chunk = s // n_chunks
-    kv_pos = torch.arange(s, device=x.device)
+    kv_pos = torch.arange(s, device=q_nope.device)
     outs = []
     for idx in range(n_chunks):
         sl = slice(idx * chunk, (idx + 1) * chunk)
@@ -70,11 +84,31 @@ def mla_apply(params, x, cfg, positions, *, causal: bool = True):
             + torch.einsum("bqhk,bsk->bhqs", q_rope[:, sl], k_rope)
         ).float() * scale
         if causal:
-            q_pos = idx * chunk + torch.arange(chunk, device=x.device)
+            q_pos = idx * chunk + torch.arange(chunk, device=q_nope.device)
             scores = torch.where(kv_pos[None, :] <= q_pos[:, None], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(dtype)
         outs.append(torch.einsum("bhqs,bshk->bqhk", probs, v))
-    return out_project(torch.cat(outs, dim=1), params["wo"])
+    return torch.cat(outs, dim=1)
+
+
+def _on_local_heads(fn, heads: tuple, shared: tuple):
+    """``fn(*heads, *shared)`` on each rank's local tensors: its batch
+    shard and its heads (dimension 2 of each of ``heads``, split alike
+    over ``model`` where they divide it), ``shared`` (no heads dimension) whole
+    over ``model`` with their gradients partial sums there.  As
+    ``attention._on_local_heads``: DTensor plans these einsums'
+    redistributions slowly on a three-axis mesh, and every op of the
+    attention is local to a batch shard and a head."""
+    first = heads[0]
+    mesh = first.device_mesh
+    split = heads_mesh_dim(mesh, first.shape[2])
+    at = tuple(Shard(2) if i == split else Shard(0) if p.is_shard(0) else Replicate()
+               for i, p in enumerate(first.placements))
+    whole = tuple(Replicate() if i == split else p for i, p in enumerate(at))
+    grad = tuple(Partial() if i == split else p for i, p in enumerate(at))
+    local = [t.redistribute(mesh, at).to_local() for t in heads]
+    local += [t.redistribute(mesh, whole).to_local(grad_placements=grad) for t in shared]
+    return DTensor.from_local(fn(*local), mesh, at)
 
 
 def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len: int):
@@ -93,13 +127,24 @@ def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len: int):
     # absorb W_UK into q: (b,1,h,nope) x (r,h,nope) -> (b,1,h,r)
     q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, params["wk_b"].to(dtype))
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    attend = functools.partial(_attend_latent, scale=scale, cache_len=cache_len)
+    if isinstance(q_lat, DTensor):
+        out_lat = _on_local_heads(attend, (q_lat, q_rope), (cache_ckv, cache_krope))
+    else:
+        out_lat = attend(q_lat, q_rope, cache_ckv, cache_krope)
+    out = torch.einsum("bqhr,rhk->bqhk", out_lat, params["wv_b"].to(dtype))
+    return out_project(out, params["wo"]), cache_ckv, cache_krope
+
+
+def _attend_latent(q_lat, q_rope, cache_ckv, cache_krope, *, scale: float, cache_len: int):
+    """One query position against the latent cache's first ``cache_len +
+    1``; the attention-weighted latent ``(b, 1, h, r)``."""
+    dtype = q_lat.dtype
     scores = (
         torch.einsum("bqhr,bsr->bhqs", q_lat, cache_ckv.to(dtype))
         + torch.einsum("bqhk,bsk->bhqs", q_rope, cache_krope.to(dtype))
     ).float() * scale
-    valid = torch.arange(cache_ckv.shape[1], device=x.device) <= cache_len
+    valid = torch.arange(cache_ckv.shape[1], device=q_lat.device) <= cache_len
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, cache_ckv.to(dtype))
-    out = torch.einsum("bqhr,rhk->bqhk", out_lat, params["wv_b"].to(dtype))
-    return out_project(out, params["wo"]), cache_ckv, cache_krope
+    return torch.einsum("bhqs,bsr->bqhr", probs, cache_ckv.to(dtype))

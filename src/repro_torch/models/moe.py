@@ -13,7 +13,8 @@ instead: every model shard routes its data shard's tokens to its own
 slice of the experts (:func:`ep_shard`), and the shards' partial outputs
 are summed.  On DTensors that sum is one all-reduce over the ``model``
 ranks; on plain tensors (one process, a logical mesh) the shards run one
-after another.
+after another.  Where a DTensor input falls through to the gather path,
+each rank runs it whole on replicated local tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils._python_dispatch import _disable_current_modes
 
 from . import sharding_policy
-from .layers import MLP, Params, swiglu
+from .layers import MLP, Params, swiglu, tree_map
 
 __all__ = ["MoE", "route", "route_tape", "router_probs", "moe_apply", "ep_shard"]
 
@@ -117,7 +118,8 @@ def moe_apply(params, x, cfg):
       **own** expert slice and the only collective is one sum over
       ``model`` for the combine.
     * **gather path** (no policy / tiny batches): sort-based capacity
-      dispatch in plain tensor code.
+      dispatch in plain tensor code; on DTensors every rank runs it on
+      its inputs replicated (:func:`_moe_gather_replicated`).
     """
     policy = sharding_policy._POLICY
     if policy is not None and policy.get("model"):
@@ -134,57 +136,88 @@ def moe_apply(params, x, cfg):
 
 
 def _moe_gather(params, x, cfg):
+    if isinstance(x, DTensor):
+        return _moe_gather_replicated(params, x, cfg)
     m = cfg.moe
     b, s, d = x.shape
-    dtype = x.dtype
     n_tokens = b * s
     xt = x.reshape(n_tokens, d)
+    expert_ids, gate_vals, aux = _gates(params, xt, cfg)
+    cap = _capacity(n_tokens, cfg)
+    slot_token, slot_gate = _dispatch(expert_ids, gate_vals, m.n_experts, cap)
+    y = _experts(xt, slot_token, slot_gate, params["w_gate"], params["w_up"],
+                 params["w_down"], cap)
+    if m.n_shared:
+        y = y + _shared_experts(params, xt, x.dtype)
+    return y.reshape(b, s, d), aux
 
+
+def _moe_gather_replicated(params, x, cfg):
+    """The gather path on DTensors: every rank runs it whole on its
+    inputs gathered (replicated) as local tensors, and the output comes
+    back replicated.  The routing's sort, rank within an expert and slot
+    scatter are data-dependent integer work that DTensor has no sharding
+    rule for; on replicated inputs every rank computes the same output
+    and the same gradients, so each local gradient is the whole one."""
+    mesh = x.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, whole).to_local() if isinstance(t, DTensor) else t
+
+    y, aux = _moe_gather(tree_map(local, params), local(x), cfg)
+    return DTensor.from_local(y, mesh, whole), DTensor.from_local(aux, mesh, whole)
+
+
+def _gates(params, xt, cfg):
+    """Each token's top-k experts ``(T, k)``, their renormalised gates
+    ``(T, k)`` in f32, and the Switch load-balancing aux loss."""
+    m = cfg.moe
     probs, expert_ids = _routed(params, xt, cfg)
     gate_vals = probs.gather(1, expert_ids)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
-
-    # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=0)
     ce = F.one_hot(expert_ids[:, 0], m.n_experts).float().mean(dim=0)
     aux = m.n_experts * torch.sum(me * ce) * m.router_aux_weight
+    return expert_ids, gate_vals, aux
 
-    # ---- sort-based dispatch with static capacity ---- #
-    cap = _capacity(n_tokens, cfg)
-    n_slots = m.n_experts * cap
-    flat_expert = expert_ids.reshape(-1)  # (T*k,)
-    flat_token = torch.arange(n_tokens, device=x.device).repeat_interleave(m.top_k)
-    flat_gate = gate_vals.reshape(-1)
 
-    se, order = torch.sort(flat_expert, stable=True)
-    stok, sgate = flat_token[order], flat_gate[order]
+def _dispatch(expert_ids, gate_vals, n_experts: int, cap: int):
+    """Sort-based dispatch with static capacity: the token and the gate
+    of each of the ``n_experts * cap`` (expert, rank) slots.  Entries are
+    ranked within their expert by a stable sort; entries past ``cap`` or
+    of an expert id ``>= n_experts`` (another shard's) go to an overflow
+    row, and empty slots hold token ``T`` (a zero row) with gate 0."""
+    n_tokens, top_k = expert_ids.shape
+    dev = expert_ids.device
+    n_slots = n_experts * cap
+    flat_token = torch.arange(n_tokens, device=dev).repeat_interleave(top_k)
+    se, order = torch.sort(expert_ids.reshape(-1), stable=True)
+    stok, sgate = flat_token[order], gate_vals.reshape(-1)[order]
     # rank of each entry within its expert
-    pos = torch.arange(se.shape[0], device=x.device) - torch.searchsorted(se, se, side="left")
-    keep = pos < cap
+    pos = torch.arange(se.shape[0], device=dev) - torch.searchsorted(se, se, side="left")
+    keep = (pos < cap) & (se < n_experts)
     slot = torch.where(keep, se * cap + pos, n_slots)  # overflow row
-
-    # token index per (expert, capacity) slot; padded slots -> row n_tokens
-    slot_token = torch.full((n_slots + 1,), n_tokens, dtype=torch.long, device=x.device)
+    slot_token = torch.full((n_slots + 1,), n_tokens, dtype=torch.long, device=dev)
     slot_token[slot] = torch.where(keep, stok, n_tokens)
-    slot_token = slot_token[:n_slots]
-    slot_gate = torch.zeros(n_slots + 1, dtype=torch.float32, device=x.device)
+    slot_gate = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev)
     slot_gate[slot] = torch.where(keep, sgate, 0.0)
-    slot_gate = slot_gate[:n_slots]
+    return slot_token[:n_slots], slot_gate[:n_slots]
 
+
+def _experts(xt, slot_token, slot_gate, wg, wu, wd, cap: int):
+    """The expert FFNs as one batched product over the expert dimension,
+    then the combine: a gate-weighted scatter-add back to the tokens."""
+    n_tokens, d = xt.shape
+    dtype = xt.dtype
     x_pad = torch.cat([xt, xt.new_zeros(1, d)])
-    xe = x_pad[slot_token].reshape(m.n_experts, cap, d)
-    g = torch.bmm(xe, params["w_gate"].to(dtype))
-    u = torch.bmm(xe, params["w_up"].to(dtype))
+    xe = x_pad[slot_token].reshape(-1, cap, d)
+    g = torch.bmm(xe, wg.to(dtype))
+    u = torch.bmm(xe, wu.to(dtype))
     h = F.silu(g.float()).to(dtype) * u
-    ye = torch.bmm(h, params["w_down"].to(dtype))
-
-    # combine: scatter-add expert outputs back to tokens, gate-weighted
-    ye_flat = ye.reshape(n_slots, d) * slot_gate[:, None].to(dtype)
-    y = x.new_zeros(n_tokens + 1, d).index_add_(0, slot_token, ye_flat)[:n_tokens]
-
-    if m.n_shared:
-        y = y + _shared_experts(params, xt, dtype)
-    return y.reshape(b, s, d), aux
+    ye = torch.bmm(h, wd.to(dtype))
+    ye_flat = ye.reshape(-1, d) * slot_gate[:, None].to(dtype)
+    return xt.new_zeros(n_tokens + 1, d).index_add_(0, slot_token, ye_flat)[:n_tokens]
 
 
 def _shared_experts(params, xt, dtype):
@@ -215,47 +248,14 @@ def ep_shard(xb, router, wg, wu, wd, shard: int, n_model: int, cfg):
     t_loc = b_loc * s
     xt = xb.reshape(t_loc, d)
     _, e_loc = _padded_experts(m.n_experts, n_model)
-
-    probs, expert_ids = _routed({"router": router}, xt, cfg)
-    gate_vals = probs.gather(1, expert_ids)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(expert_ids[:, 0], m.n_experts).float().mean(dim=0)
-    aux = m.n_experts * torch.sum(me * ce) * m.router_aux_weight
-
+    expert_ids, gate_vals, aux = _gates({"router": router}, xt, cfg)
     # shard-local expert slice; entries of other shards go past its end
     e_lo = shard * e_loc
-    flat_expert = expert_ids.reshape(-1)
-    flat_token = torch.arange(t_loc, device=xb.device).repeat_interleave(m.top_k)
-    flat_gate = gate_vals.reshape(-1)
-    mine = (flat_expert >= e_lo) & (flat_expert < e_lo + e_loc)
-    local_e = torch.where(mine, flat_expert - e_lo, e_loc)
-
-    cap = max(8, int(t_loc * m.top_k * m.capacity_factor / m.n_experts))
-    cap += -cap % 8
-    n_slots = e_loc * cap
-    se, order = torch.sort(local_e, stable=True)
-    stok, sgate = flat_token[order], flat_gate[order]
-    pos = torch.arange(se.shape[0], device=xb.device) - torch.searchsorted(se, se, side="left")
-    keep = (pos < cap) & (se < e_loc)
-    slot = torch.where(keep, se * cap + pos, n_slots)  # overflow row
-
-    slot_token = torch.full((n_slots + 1,), t_loc, dtype=torch.long, device=xb.device)
-    slot_token[slot] = torch.where(keep, stok, t_loc)
-    slot_token = slot_token[:n_slots]
-    slot_gate = torch.zeros(n_slots + 1, dtype=torch.float32, device=xb.device)
-    slot_gate[slot] = torch.where(keep, sgate, 0.0)
-    slot_gate = slot_gate[:n_slots]
-
-    dtype = xt.dtype
-    x_pad = torch.cat([xt, xt.new_zeros(1, d)])
-    xe = x_pad[slot_token].reshape(e_loc, cap, d)  # local gather
-    g = torch.bmm(xe, wg.to(dtype))
-    u = torch.bmm(xe, wu.to(dtype))
-    h = F.silu(g.float()).to(dtype) * u
-    ye = torch.bmm(h, wd.to(dtype))
-    ye_flat = ye.reshape(n_slots, d) * slot_gate[:, None].to(dtype)
-    y = xt.new_zeros(t_loc + 1, d).index_add_(0, slot_token, ye_flat)[:t_loc]
+    mine = (expert_ids >= e_lo) & (expert_ids < e_lo + e_loc)
+    local_e = torch.where(mine, expert_ids - e_lo, e_loc)
+    cap = _capacity(t_loc, cfg)
+    slot_token, slot_gate = _dispatch(local_e, gate_vals, e_loc, cap)
+    y = _experts(xt, slot_token, slot_gate, wg, wu, wd, cap)  # local gather
     return y.reshape(b_loc, s, d), aux
 
 

@@ -7,13 +7,14 @@ and the launcher installs the physical mapping:
 
     batch  -> ('pod', 'data')     model -> 'model'      None -> replicated
 
-``constrain`` redistributes a DTensor to that layout.  When no policy is
-installed (the CPU unit tests), or on a plain tensor (one device, as the
-drivers run), it is a no-op.
+``constrain`` redistributes a DTensor, and its gradient, to that
+layout.  When no policy is installed (the CPU unit tests), or on a plain
+tensor (one device, as the drivers run), it is a no-op.
 """
 
 from __future__ import annotations
 
+import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 _POLICY: dict | None = None
@@ -100,12 +101,42 @@ def placements_of(spec, sizes: dict) -> tuple:
     return tuple(out)
 
 
+def heads_mesh_dim(mesh, n_heads: int) -> int | None:
+    """The mesh dimension of the policy's ``model`` axis, over which ``n_heads``
+    heads split evenly, or ``None`` (no policy, no such axis, or heads
+    that do not divide it)."""
+    axis = (_POLICY or {}).get("model")
+    names = mesh.mesh_dim_names
+    if axis not in names:
+        return None
+    dim = names.index(axis)
+    return dim if n_heads % mesh.size(dim) == 0 else None
+
+
+class _Pin(torch.autograd.Function):
+    """``x`` redistributed to ``placements``, and its gradient too: the
+    transpose of JAX's ``with_sharding_constraint`` constrains the
+    cotangent alike.  Without it a gradient keeps whatever layout its
+    producer left (a partial sum over ``model``), and DTensor would
+    replicate the next weight rather than reduce it."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
 def constrain(x, dims: tuple):
     """dims entries: 'batch' | 'seq' | 'model' | None per tensor dimension."""
     if _POLICY is None or not isinstance(x, DTensor):
         return x
-    mesh = x.device_mesh
-    placements = placements_of(guarded_dims(x.shape, dims), axis_sizes(mesh))
+    placements = placements_of(guarded_dims(x.shape, dims), axis_sizes(x.device_mesh))
     if placements == tuple(x.placements):
         return x
-    return x.redistribute(mesh, placements)
+    return _Pin.apply(x, placements)

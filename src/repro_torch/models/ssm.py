@@ -9,9 +9,13 @@ them.  Decode is the O(1)-state single-step recurrence.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from . import sharding_policy
 from .layers import Params, softplus
 
 __all__ = ["Mamba1", "Mamba2", "mamba1_apply", "mamba1_decode", "mamba2_apply",
@@ -187,12 +191,25 @@ def mamba2_apply(params, x, cfg):
     xh, B, C, dt, A, z = _mamba2_gates(params, x, cfg)
     b_, l, nh, hd = xh.shape
     chunk = min(s.chunk, l)
+    if isinstance(xh, DTensor):
+        y = _ssd_on_local_heads(functools.partial(_ssd, chunk=chunk), x, xh, B, C, dt, A)
+    else:
+        y = _ssd(xh, B, C, dt, A, chunk=chunk)
+    y = y + params["D"][None, None, :, None] * xh.float()
+    y = y.reshape(b_, l, nh * hd).to(dtype)
+    y = y * F.silu(z.float()).to(dtype)
+    return y @ params["out_proj"].to(dtype)
+
+
+def _ssd(xh, B, C, dt, A, *, chunk: int):
+    """The SSD scan of ``xh`` ``(b, l, nh, hd)`` in chunks: ``y`` in f32."""
+    b_, l, nh, hd = xh.shape
     n_chunks = max(l // chunk, 1)
     chunk = l // n_chunks
     loga = dt * A[None, None]  # (b, l, nh)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
 
-    h = torch.zeros((b_, nh, s.state_dim, hd), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b_, nh, B.shape[-1], hd), dtype=torch.float32, device=xh.device)
     ys = []
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -213,11 +230,35 @@ def mamba2_apply(params, x, cfg):
         state_in = torch.einsum("bsn,bshd,bsh->bhnd", Bc, xc, torch.exp(rem) * dtc)
         h = h * torch.exp(cum[:, -1])[:, :, None, None] + state_in
         ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(b_, l, nh * hd).to(dtype)
-    y = y * F.silu(z.float()).to(dtype)
-    return y @ params["out_proj"].to(dtype)
+    return torch.cat(ys, dim=1)
+
+
+def _ssd_on_local_heads(fn, x, xh, B, C, dt, A):
+    """``fn(xh, B, C, dt, A)`` on each rank's local tensors: the batch
+    shard of the layer input ``x`` and, where they divide the ``model``
+    axis, its heads; ``B`` and ``C`` (no heads) whole over ``model``, their
+    gradients (and ``A``'s over the batch) partial sums.  DTensor plans
+    the scan's 4-D einsums' redistributions on a three-axis mesh by a
+    graph search that does not end in minutes; every op of the scan is
+    local to a batch shard and a head."""
+    mesh = x.device_mesh
+    split = sharding_policy.heads_mesh_dim(mesh, xh.shape[2])
+    batch = [p.is_shard(0) for p in x.placements]
+
+    def at(heads_dim):
+        """Batch at dim 0 (sharded as ``x``'s), heads at ``heads_dim``."""
+        return tuple((Replicate() if heads_dim is None else Shard(heads_dim)) if i == split
+                     else Shard(0) if b else Replicate() for i, b in enumerate(batch))
+
+    shared_grad = tuple(Partial() if i == split else p for i, p in enumerate(at(None)))
+    a_at = tuple(Shard(0) if i == split else Replicate() for i in range(len(batch)))
+    a_grad = tuple(Shard(0) if i == split else Partial() if b else Replicate()
+                   for i, b in enumerate(batch))
+    xh_l, dt_l = (t.redistribute(mesh, at(2)).to_local() for t in (xh, dt))
+    B_l, C_l = (t.redistribute(mesh, at(None)).to_local(grad_placements=shared_grad)
+                for t in (B, C))
+    A_l = A.redistribute(mesh, a_at).to_local(grad_placements=a_grad)
+    return DTensor.from_local(fn(xh_l, B_l, C_l, dt_l, A_l), mesh, at(2))
 
 
 def mamba2_decode(params, x, cfg, conv_state, ssm_state):

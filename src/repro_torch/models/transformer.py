@@ -202,6 +202,14 @@ def _layer(stage, i: int):
     return tree_map(lambda a: a[i], stage)
 
 
+def _residual(x):
+    """The residual stream pinned to its layout, (b@dp, s[, @model if
+    SP], d): a sublayer's output arrives as a partial sum over ``model``
+    (its tensor-parallel product), which DTensor would otherwise carry
+    into the next sublayer's products and replicate their weights."""
+    return constrain(x, ("batch", "seq", None))
+
+
 def _apply_layer(kind, lp, x, cfg, positions, *, causal=True, memory=None,
                  mrope_positions=None):
     """One layer forward; returns (x, aux_loss)."""
@@ -209,27 +217,27 @@ def _apply_layer(kind, lp, x, cfg, positions, *, causal=True, memory=None,
     if kind in ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe"):
         h = rmsnorm(lp["norm1"], x)
         if kind.startswith("mla"):
-            x = x + mla.mla_apply(lp["attn"], h, cfg, positions, causal=causal)
+            x = _residual(x + mla.mla_apply(lp["attn"], h, cfg, positions, causal=causal))
         else:
-            x = x + attention.attention_apply(lp["attn"], h, cfg, positions, causal=causal,
-                                              mrope_positions=mrope_positions)
+            x = _residual(x + attention.attention_apply(
+                lp["attn"], h, cfg, positions, causal=causal, mrope_positions=mrope_positions))
         h = rmsnorm(lp["norm2"], x)
         if kind.endswith("mlp"):
-            x = x + mlp_apply(lp["mlp"], h)
+            x = _residual(x + mlp_apply(lp["mlp"], h))
         else:
             y, aux = moe.moe_apply(lp["moe"], h, cfg)
-            x = x + y
+            x = _residual(x + y)
     elif kind == "mamba1":
-        x = x + ssm.mamba1_apply(lp["mixer"], rmsnorm(lp["norm1"], x), cfg)
+        x = _residual(x + ssm.mamba1_apply(lp["mixer"], rmsnorm(lp["norm1"], x), cfg))
     elif kind == "mamba2":
-        x = x + ssm.mamba2_apply(lp["mixer"], rmsnorm(lp["norm1"], x), cfg)
+        x = _residual(x + ssm.mamba2_apply(lp["mixer"], rmsnorm(lp["norm1"], x), cfg))
     elif kind == "xattn_mlp":
         h = rmsnorm(lp["norm1"], x)
-        x = x + attention.attention_apply(lp["attn"], h, cfg, positions, causal=True)
+        x = _residual(x + attention.attention_apply(lp["attn"], h, cfg, positions, causal=True))
         h = rmsnorm(lp["norm_x"], x)
-        x = x + _cross_attention(lp["xattn"], h, memory, cfg)
+        x = _residual(x + _cross_attention(lp["xattn"], h, memory, cfg))
         h = rmsnorm(lp["norm2"], x)
-        x = x + mlp_apply(lp["mlp"], h)
+        x = _residual(x + mlp_apply(lp["mlp"], h))
     else:
         raise ValueError(kind)
     return x, aux
@@ -249,7 +257,7 @@ def _shared_attn(params, x, cfg, positions):
     """Zamba2-style shared attention block."""
     sa = params["shared_attn"]
     h = rmsnorm(sa["norm"], x)
-    return x + attention.attention_apply(sa["attn"], h, cfg, positions, causal=True)
+    return _residual(x + attention.attention_apply(sa["attn"], h, cfg, positions, causal=True))
 
 
 #: per-layer remat policy: 'full' recomputes everything in the backward
@@ -483,19 +491,20 @@ def _decode_layer(kind, lp, x, cfg, sc, i: int, cache_len: int, memory=None):
         y, conv, st = decode_fn(lp["mixer"], h, cfg, sc["conv"][i], sc["ssm"][i])
         sc["conv"][i] = conv
         sc["ssm"][i] = st
-        return x + y
+        return _residual(x + y)
     if kind in ("mla_mlp", "mla_moe"):
         y, _, _ = mla.mla_decode(lp["attn"], h, cfg, sc["ckv"][i], sc["krope"][i], cache_len)
     else:
         y, _, _ = attention.attention_decode(lp["attn"], h, cfg, sc["k"][i], sc["v"][i],
                                              cache_len)
-    x = x + y
+    x = _residual(x + y)
     if kind == "xattn_mlp":
-        x = x + _cross_attention(lp["xattn"], rmsnorm(lp["norm_x"], x), memory, cfg)
+        x = _residual(x + _cross_attention(lp["xattn"], rmsnorm(lp["norm_x"], x), memory,
+                                           cfg))
     h = rmsnorm(lp["norm2"], x)
     if kind in ("attn_mlp", "mla_mlp", "xattn_mlp"):
-        return x + mlp_apply(lp["mlp"], h)
-    return x + moe.moe_apply(lp["moe"], h, cfg)[0]
+        return _residual(x + mlp_apply(lp["mlp"], h))
+    return _residual(x + moe.moe_apply(lp["moe"], h, cfg)[0])
 
 
 def decode_step(params, cfg, token, cache, cache_len: int, *, memory=None):
@@ -507,7 +516,7 @@ def decode_step(params, cfg, token, cache, cache_len: int, *, memory=None):
     params = as_tree(params)
     if cfg.family == "encdec" and memory is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder decode step needs memory=")
-    x = embed_tokens(params["embedding"], token)
+    x = _residual(embed_tokens(params["embedding"], token))
     shared = cache.get("shared_attn")
     shared_idx = 0
     for (kind, n), stage, sc in zip(stage_plan(cfg), params["stages"], cache["stages"]):
@@ -522,7 +531,7 @@ def decode_step(params, cfg, token, cache, cache_len: int, *, memory=None):
                 y, _, _ = attention.attention_decode(
                     sa["attn"], rmsnorm(sa["norm"], x), cfg, shared["k"][shared_idx],
                     shared["v"][shared_idx], cache_len)
-                x = x + y
+                x = _residual(x + y)
                 shared_idx += 1
     h = rmsnorm(params["final_norm"], x)
     return unembed(params["embedding"], h), cache

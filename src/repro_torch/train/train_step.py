@@ -22,7 +22,8 @@ reduction) before the compression and the update, and the metrics come
 back as plain tensors, whole on every rank.
 
 ``make_serve_step`` returns the decode step used by the inference
-shapes.
+shapes, ``make_prefill_step`` the prefill; both run on placed (DTensor)
+parameters as the train step does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import transformer
+from ..models.layers import tree_leaves
 from ..optim import (
     AdamWConfig,
     adamw_init,
@@ -88,13 +90,21 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def _placed(params):
+    """Inside, plain tensors count as replicated when ``params`` (a
+    module or a tree) holds DTensors: the model's own positions and
+    masks meet sharded activations."""
+    leaves = params.parameters() if isinstance(params, torch.nn.Module) else tree_leaves(params)
+    sharded = any(isinstance(p, DTensor) for p in leaves)
+    return implicit_replication() if sharded else contextlib.nullcontext()
+
+
 def make_train_step(cfg, train_cfg: TrainConfig):
     """Build the train step for model config ``cfg``."""
 
     def train_step(state: dict, batch: dict):
         named = dict(state["params"].named_parameters())
-        sharded = any(isinstance(p, DTensor) for p in named.values())
-        with implicit_replication() if sharded else contextlib.nullcontext():
+        with _placed(state["params"]):
             return _step(state, batch, named)
 
     def _step(state: dict, batch: dict, named: dict):
@@ -143,7 +153,9 @@ def make_serve_step(cfg):
     """Decode step: (params, token, cache, cache_len[, memory]) -> ..."""
 
     def serve_step(params, token, cache, cache_len, memory=None):
-        return transformer.decode_step(params, cfg, token, cache, cache_len, memory=memory)
+        with _placed(params):
+            return transformer.decode_step(params, cfg, token, cache, cache_len,
+                                           memory=memory)
 
     return serve_step
 
@@ -152,7 +164,8 @@ def make_prefill_step(cfg):
     """Prefill: full forward returning last-position logits."""
 
     def prefill_step(params, batch):
-        logits, _ = transformer.forward_logits(params, cfg, batch)
-        return logits[:, -1]
+        with _placed(params):
+            logits, _ = transformer.forward_logits(params, cfg, batch)
+            return logits[:, -1]
 
     return prefill_step

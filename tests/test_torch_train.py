@@ -562,3 +562,9 @@ def test_chip_full_width_phase_runs_on_cpu(smoke, monkeypatch):
     assert out["steps"] == 20 and out["tokens_per_step"] == 8 * 32
     assert out["loss_first_last"][1] < out["loss_first_last"][0]
     assert not any(out["step_launches"].values())
+    # phase 1a (f): the first step was counted, and the dry run of the same
+    # step on the 1x1 mesh counts the same FLOPs (it raises otherwise)
+    assert out["step_cost"]["batch_shape"] == [8, 32] and out["step_cost"]["flops"] > 0
+    roof = smoke._roofline_counts(out)
+    assert roof["dryrun"]["flops_per_device"] == out["step_cost"]["flops"]
+    assert roof["bottleneck"] in ("compute", "memory") and roof["mfu"] > 0

@@ -1,12 +1,13 @@
 """Gloo ranks on the CPU for the port's sharding tests.
 
-``run_ranks(task, args, tmp)`` starts ``WORLD`` processes, each
-``python tests/torch_ranks.py <rank> <store> <task> <args>``: one thread
-each (``torch.set_num_threads(1)``), meeting in one ``FileStore`` under
-``tmp``, every process killed at ``timeout`` (a hung rendezvous fails
-the test instead of stalling the run).  ``run_reference`` runs a test
-module's ``_dump_reference`` in a subprocess with four CPU devices.  Each task builds the 2x2
-(data, model) mesh and writes rank 0's results to ``tmp/<task>.pkl``;
+``run_ranks(task, args, tmp)`` starts a process per rank of ``MESH``, each
+``python tests/torch_ranks.py <rank> <store> <data>x<model> <task> <args>``:
+one thread each (``torch.set_num_threads(1)``), meeting in one
+``FileStore`` under ``tmp``, every process killed at ``timeout`` (a hung
+rendezvous fails the test instead of stalling the run).  ``run_reference`` runs a test
+module's ``_dump_reference`` in a subprocess with four CPU devices.  Each task builds the
+(data, model) mesh, 2x2 unless ``run_ranks`` is given another, and writes
+rank 0's results to ``tmp/<task>.pkl``;
 this module imports neither JAX nor the JAX package.
 """
 
@@ -19,17 +20,19 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-WORLD = 4
 MESH = (2, 2)
 
 
-def run_ranks(task: str, args: list[str], tmp: Path, timeout: float = 300) -> dict:
+def run_ranks(task: str, args: list[str], tmp: Path, timeout: float = 300,
+              mesh: tuple[int, int] = MESH) -> dict:
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT / "src"))
     store = tmp / f"{task}.store"
-    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(store), task, *args],
+    shape = "x".join(map(str, mesh))
+    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(store), shape, task,
+                               *args],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               env=env, cwd=ROOT)
-             for rank in range(WORLD)]
+             for rank in range(mesh[0] * mesh[1])]
     try:
         for rank, proc in enumerate(procs):
             stdout, stderr = proc.communicate(timeout=timeout)
@@ -105,6 +108,43 @@ def task_train(mesh, out: Path, init_path: str, arch: str, n_steps: str, seq: st
             "params": {k: _numpy(p) for k, p in named.items()}}
 
 
+def task_steps(mesh, out: Path, arch: str, n_steps: str, seq: str, batch: str) -> dict:
+    """``n_steps`` train steps of the smoke config from a seeded state,
+    plain and placed by ``state_shardings`` (each batch by
+    ``batch_shardings``): each run's losses and metrics, the initial and
+    the final parameters, gathered."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.launch.sharding import batch_shardings, state_shardings
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step, reshard_state
+
+    cfg = get_config(arch, smoke=True)
+    tcfg = TrainConfig(total_steps=6, warmup_steps=1)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=int(seq),
+                                        global_batch=int(batch)))
+    batches = [{k: torch.from_numpy(v) for k, v in corpus.batch(s).items()}
+               for s in range(int(n_steps))]
+    step = make_train_step(cfg, tcfg)
+    runs = {}
+    for name in ("plain", "placed"):
+        state = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
+        init = {k: _numpy(p).copy() for k, p in state["params"].named_parameters()}
+        if name == "placed":
+            state = reshard_state(state, mesh, state_shardings)
+        metrics = []
+        for b in batches:
+            if name == "placed":
+                sh = batch_shardings(b, mesh)
+                b = {k: sh[k].place(v) for k, v in b.items()}
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[name] = {"metrics": metrics, "init": init,
+                      "params": {k: _numpy(p) for k, p in state["params"].named_parameters()}}
+    return runs
+
+
 def task_reshard(mesh, out: Path, arch: str) -> dict:
     """A seeded state placed on the mesh by ``reshard_state`` and
     gathered back: every leaf, its placements and its local shape."""
@@ -166,18 +206,19 @@ def task_ep(mesh, out: Path, *case_paths: str) -> dict:
 
 
 def main(argv: list[str]) -> None:
-    rank, store, task, *args = argv
+    rank, store, shape, task, *args = argv
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_process_group, make_host_mesh
 
-    init_process_group(WORLD, int(rank), device="cpu", store_path=store)
+    data, model = map(int, shape.split("x"))
+    init_process_group(data * model, int(rank), device="cpu", store_path=store)
     try:
         from repro_torch.models.sharding_policy import set_policy_from_mesh
 
-        mesh = make_host_mesh(*MESH)
+        mesh = make_host_mesh(data, model)
         set_policy_from_mesh(mesh)
         out = Path(store).parent
         result = globals()[f"task_{task}"](mesh, out, *args)

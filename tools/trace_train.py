@@ -15,7 +15,8 @@ medians it prints the step's bounds on one H100: the model's bf16
 products (6 N T for the non-embedding parameters, the tied head's 6 d V
 T, the remat's second forward 2 N T) over 989 TFLOP/s, and the
 optimizer's bytes (read parameter, gradient and both moments, write
-parameter and moments: 28 B a parameter) over 3.35 TB/s.  The card's
+parameter and moments: 28 B a parameter) over 3.35 TB/s (the peaks of
+``repro_torch.roofline.analysis``).  The card's
 name and power limit print last.
 """
 
@@ -28,9 +29,6 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
 
 
 def main() -> int:
@@ -48,6 +46,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticCorpus
@@ -107,8 +106,8 @@ def main() -> int:
         "arch": cfg.name, "remat": args.remat, "params": n_params, "tokens": tokens,
         "step_ms": statistics.median(steps), "model_ms": statistics.median(models),
         "optimizer_ms": statistics.median(optims),
-        "model_bound_ms": model_flops / BF16_FLOPS * 1e3,
-        "optimizer_bound_ms": 28 * n_params / HBM_BYTES_PER_S * 1e3,
+        "model_bound_ms": model_flops / PEAK_FLOPS * 1e3,
+        "optimizer_bound_ms": 28 * n_params / HBM_BW * 1e3,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "steps_ms": steps,
     }
