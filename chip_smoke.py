@@ -65,7 +65,10 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        warm-up step, not a timed one), whose FLOPs must
                        equal the dry run's (``launch/dryrun.py``) count of
                        the same step at the same shape on the 1x1 mesh of
-                       meta DTensors (a process of its own, no card); the
+                       meta DTensors (a process of its own, no card,
+                       started after part (e) and run beside phases 2-3,
+                       whose checks time nothing: the phase reports after
+                       phase 3); the
                        roofline row against the H100's published peaks
                        beside the measured step wall (compute and memory
                        terms, bottleneck, model FLOPs and counted FLOPs
@@ -174,6 +177,11 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        (``kernels/tune.py``, its cache in a temporary
                        directory): the path it picks at each point beside
                        the hand-set rule's, a second lookup a cache hit;
+                       and at each timed ``join_bounds`` case (the main
+                       path's launches), where the path the main path's
+                       tuner cache routes it to is not the hand-set
+                       rule's, both paths' device-only times: the tuned
+                       one may not be the slower;
 10. serve-small      — the port's server (``repro_torch.launch.serve_datalog``,
                        in-process) at ``--kb lubm --scale 1``, static and
                        ``--live --live-verify``, with ``--provenance
@@ -256,13 +264,17 @@ Phases (progress on stdout, any failure raises and exits non-zero):
                        more live batch and the 50 queries after it.
 
 On the card ``join_bounds`` takes the path the tuner picks for its key
-type and size bucket (swept once a bucket); the run keeps the tuner's
-cache in a temporary directory of its own.
+type and the size buckets of its two sides (swept once a pair of
+buckets); the run keeps the tuner's cache in a temporary directory of
+its own.
 
 Launch counts are zeroed just before each main-path run (phases 1a, 1a (d)'s
 full-width run, 1a (e), 4, 5, 5a,
 7 at each shard count, 8, 11-15; phase 13's crashed run and its restore apart) and read just
-after; every kernel of a path must have launched there.
+after; every kernel of a path must have launched there.  A tuner sweep
+inside a run is metered apart (``ops.tuning_counts``) and logged with the
+run's counts (``[tune]``): its launches, and the seconds of the run's wall
+it took.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line the device JSON object.  Without a card, or
@@ -337,6 +349,28 @@ _T0 = time.perf_counter()
 def log(msg: str) -> None:
     """One progress line, stamped with the seconds since the start."""
     print(f"{time.perf_counter() - _T0:7.1f} s {msg}", flush=True)
+
+
+#: the join_bounds tuner's sweeps inside each main-path run: the function
+#: that read the run's launch counts, and ``ops.tuning_counts()``
+TUNING_IN_RUNS: list[tuple[str, dict]] = []
+
+
+def launch_counts() -> dict[str, int]:
+    """``ops.launch_counts()`` of the main-path run just ended, with the
+    join_bounds tuner's sweeps since the counts were zeroed logged beside
+    them (``ops.tuning_counts()``): the sweeps' launches are metered
+    there, not in the kernels' counts, and their wall lies inside the
+    run's."""
+    from repro_torch.kernels import ops
+
+    tuning = ops.tuning_counts()
+    if tuning["sweeps"]:
+        run = sys._getframe(1).f_code.co_name
+        TUNING_IN_RUNS.append((run, tuning))
+        log(f"[tune] {run}: {tuning['sweeps']} join_bounds sweeps, {tuning['launches']} "
+            f"launches, {tuning['seconds']:.4f} s of the run's wall")
+    return ops.launch_counts()
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -899,7 +933,7 @@ def run_models() -> dict:
     t_wide = time.perf_counter()
     wide = {arch: _wide_arch(arch) for arch in list_configs() if arch != "qwen3-0.6b"}
     t_wide = time.perf_counter() - t_wide
-    launches = ops.launch_counts()
+    launches = launch_counts()
     if any(launches.values()):
         raise AssertionError(f"the model substrate launched hand kernels: {launches}")
     wall = time.perf_counter() - t_phase
@@ -1196,7 +1230,7 @@ def _train_full(argv: list[str] = TRAIN_FULL_ARGV) -> dict:
         res = train.run(argv)
     finally:
         train.build_kb_stream, train.make_train_step = build, make_step
-    total = ops.launch_counts()
+    total = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     step_launches = {k: total[k] - corpus_launches[k] for k in total}
     if any(step_launches.values()):
@@ -1623,7 +1657,7 @@ def run_sharding() -> dict:
     train = _sharded_train()
     ep = [_ep_block(layout) for layout in EP_LAYOUTS]
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = launch_counts()
     if any(launches.values()):
         raise AssertionError(f"sharding: the phase launched hand kernels: {launches}")
     out = {"train": train, "ep": ep, "launches": launches, "wall_s": time.perf_counter() - t0}
@@ -1657,7 +1691,9 @@ def start_step_dryrun(argv: list[str] = TRAIN_FULL_ARGV) -> subprocess.Popen:
     """The dry run of the training driver's step at ``argv``'s config and
     shape, started in a process of its own on the host (the fake group is
     a process's default group; it touches no card), its output in
-    temporary files: it runs beside phases 1a-1a (e)."""
+    temporary files.  ``main`` starts it after phase 1a (e), so that no
+    timed window of phases 1a-1a (e) shares the host with its trace: it
+    runs beside phases 2-3, whose checks time nothing."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
     proc = subprocess.Popen([sys.executable, "-c", DRYRUN_STEP, *argv], env=env, cwd=ROOT,
@@ -1720,7 +1756,8 @@ def run_roofline(train: dict, dryrun: subprocess.Popen | None = None) -> dict:
     of part (d) 2's full-width llama3.2-1b run on the card equal the dry
     run's count of the same step at the same shape on the 1x1 mesh of
     meta DTensors (:func:`_roofline_counts`; ``dryrun`` the process
-    counting it, started before phase 1a); (2) the roofline row of the
+    counting it, started after phase 1a (e) and run beside phases 2-3);
+    (2) the roofline row of the
     card's count beside the step's measured median wall: the compute and
     memory terms over the H100's published peaks
     (``repro_torch.roofline.analysis``), the bottleneck, the model FLOPs
@@ -2422,6 +2459,40 @@ def _kernels_per_call(device_ops: dict[str, float]) -> float:
     return sum(c for k, c in device_ops.items() if not k.startswith(("Memset", "Memcpy")))
 
 
+def _tuned_against_hand_set(label, dtype, args) -> dict:
+    """The path the tuner routes a timed ``join_bounds`` case to
+    (``route`` on the card) and the hand-set rule's: where they differ,
+    each path's device-only time (:func:`device_ms`, the best of two runs
+    each, in turns: tuned, hand-set, hand-set, tuned).  Raises where the
+    tuned path is the slower: the tuner may only make the main path's
+    launches faster."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.join_bounds import join_bounds_by, route
+
+    l_keys, r_sorted = args
+    n, m = l_keys.shape[0], r_sorted.shape[0]
+    tuned = route(n, m, l_keys.dtype, l_keys.device)
+    hand = tune.default_blocks("join_bounds", n)["path"] if m else "warp"
+    out = {"tuned_path": tuned, "hand_set_path": hand}
+    if tuned == hand or not n:
+        return out
+    times = {tuned: [], hand: []}
+    for path in (tuned, hand, hand, tuned):
+        ms = device_ms(lambda: join_bounds_by(l_keys, r_sorted, path))[0]
+        if ms is not None:
+            times[path].append(ms)
+    if not times[tuned] or not times[hand]:
+        raise AssertionError(f"join_bounds {label}: no device time traced for {times}")
+    out.update(tuned_device_ms=min(times[tuned]), hand_set_device_ms=min(times[hand]))
+    log(f"[kernels] join_bounds {str(dtype)[6:]} {label} ({n} x {m}): tuned path {tuned} "
+        f"{out['tuned_device_ms']} ms, hand-set {hand} {out['hand_set_device_ms']} ms "
+        f"on the device")
+    if out["tuned_device_ms"] > out["hand_set_device_ms"]:
+        raise AssertionError(f"join_bounds {label} ({n} x {m}): the tuned path {tuned} is "
+                             f"slower than the hand-set {hand}: {out}")
+    return out
+
+
 def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
     """Every time of one timed case: kernel and library call in
     alternating turns (event-timed medians), their device-only times under
@@ -2455,6 +2526,8 @@ def _time_case(name, label, dtype, shape, kernel, plain, args) -> dict:
         "bound_ms": _bytes(name, args, dtype.itemsize) / HBM_BW * 1e3,
         "bound_by": "bytes",
     }
+    if name == "join_bounds":
+        entry.update(_tuned_against_hand_set(label, dtype, args))
     log(f"[kernels] {name} {entry['dtype']} {label} {shape}: {entry}")
     # the merge as the main path calls it is one kernel (two only when it
     # must find how many codes buf holds), never with a library scan;
@@ -2576,9 +2649,9 @@ def sweep_join_bounds(dev) -> list[dict]:
                 l, r = _search_inputs(n, m, dtype, dev, rng, keys)
                 want = ref.join_bounds(l, r)
                 reg.reset("kernels.tune.")
-                tuned = tune.get_blocks("join_bounds", dtype, n, device=dev)["path"]
+                tuned = tune.get_blocks("join_bounds", dtype, n, m=m, device=dev)["path"]
                 swept = reg.snapshot("kernels.tune.").get("kernels.tune.sweeps", 0)
-                again = tune.get_blocks("join_bounds", dtype, n, device=dev)["path"]
+                again = tune.get_blocks("join_bounds", dtype, n, m=m, device=dev)["path"]
                 hits = reg.snapshot("kernels.tune.").get("kernels.tune.cache_hits", 0)
                 if again != tuned or hits != 1 + (not swept):
                     raise AssertionError(f"tune: {n} {dtype} gave {tuned} then {again}, "
@@ -2586,7 +2659,7 @@ def sweep_join_bounds(dev) -> list[dict]:
                 point = {"keys": keys, "n": n, "m": m, "dtype": str(dtype)[6:],
                          "routed": tune.default_blocks("join_bounds", n)["path"],
                          "tuned": tuned, "swept": bool(swept),
-                         "bucket": tune.size_bucket(n)}
+                         "bucket": f"{tune.size_bucket(n)}x{tune.size_bucket(m)}"}
                 for path in PATHS:
                     call = lambda p=path: join_bounds_by(l, r, p)  # noqa: E731
                     _compare("join_bounds", f"sweep {n} x {m} {path}", dtype, list(call()), want)
@@ -2669,7 +2742,7 @@ def run_full(program, dataset) -> dict:
     stats = eng.materialise()
     torch.cuda.synchronize()
     t_mat = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = launch_counts()
     largest = ops.largest_launches()
     out = {
         "load_s": t_load,
@@ -2969,7 +3042,7 @@ def run_queries(eng, oracle, d) -> dict:
 
     torch.cuda.synchronize()
     del frozen.sorted_rows
-    out["launches"] = ops.launch_counts()
+    out["launches"] = launch_counts()
     out["largest_launch"] = ops.largest_launches()
     out["one_key_m"] = max((s["m"] for s, _ in ops.launch_shapes("join_bounds")
                             if s.get("n") == 1), default=0)
@@ -3270,7 +3343,7 @@ def run_provenance(program, dataset, full: dict, oracle: dict) -> dict:
                 if not _all_verified(node):
                     raise AssertionError(f"provenance: {pred}{terms} not found or unverified")
                 trees.append(node)
-            launches = ops.launch_counts()
+            launches = launch_counts()
         for k in ("rle_expand", "sorted_member"):
             if not launches[k]:
                 raise AssertionError(f"provenance: {k} never launched")
@@ -3447,7 +3520,7 @@ def run_full_distributed(n_shards: int = 1, oracles: dict | None = None,
     for d in eng.devices:
         torch.cuda.synchronize(d)
     t_mat = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = launch_counts()
     largest = ops.largest_launches()
     log(f"{tag} largest launch per kernel {largest}")
     n_facts = sum(int(r.shape[0]) for r in facts.values())
@@ -3497,7 +3570,7 @@ def run_full_distributed(n_shards: int = 1, oracles: dict | None = None,
         for d in eng.devices:
             torch.cuda.synchronize(d)
         apply_s[label] = t_apply = time.perf_counter() - t0
-        for k, v in ops.launch_counts().items():
+        for k, v in launch_counts().items():
             apply_launches[k] += v
         for k, v in ops.largest_launches().items():
             if sum(v.values()) > sum(apply_largest[k].values()):
@@ -3587,7 +3660,7 @@ def run_closure(eng) -> dict:
             f"n_new {n_new}")
         if n_new:
             raise AssertionError(f"closure {rule}: {n_new} new facts in a closed store")
-    launches = ops.launch_counts()
+    launches = launch_counts()
     shapes = ops.launch_shapes("fused_join_dedup")
     log(f"[closure] {len(oracle)} rules, launches {launches}, largest "
         f"{ops.largest_launches()['fused_join_dedup']}")
@@ -3742,7 +3815,7 @@ def run_serve(oracle) -> dict:
     served, blocks = _serve(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, largest = ops.launch_counts(), ops.largest_launches()
+    launches, largest = launch_counts(), ops.largest_launches()
     n_oracle = sum(int(r.shape[0]) for r in oracle.values())
     if blocks["materialise"]["n_facts"] != n_oracle:
         raise AssertionError(f"serve: {blocks['materialise']['n_facts']} facts, the flat "
@@ -3802,7 +3875,7 @@ def run_live(oracle_facts: int, profile: bool) -> dict:
     served, blocks = _serve(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, largest = ops.launch_counts(), ops.largest_launches()
+    launches, largest = launch_counts(), ops.largest_launches()
     live = blocks["live"]
     if not blocks["live-verify"]["ok"]:
         raise AssertionError("live: live-verify failed")
@@ -3989,7 +4062,7 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
         CheckpointManager.checkpoint = real
         metrics.set_registry(prev)
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = launch_counts()
     cold = _read_report(report)
     if cold["materialise"]["n_facts"] != oracle_facts:
         raise AssertionError(f"durable: {cold['materialise']['n_facts']} facts loaded, the "
@@ -4073,7 +4146,7 @@ def run_durable(tmp: Path, oracle_facts: int) -> dict:
         "nodes_crashed": crashed.store.n_nodes(),
         "nodes_restored": served.inc.store.n_nodes(),
         "verified_facts": blocks["live-verify"]["facts"],
-        "restore_launches": ops.launch_counts(),
+        "restore_launches": launch_counts(),
         "restore_largest_launch": ops.largest_launches(),
         "provenance": {"crashed_records": crashed_records[0],
                        "sidecar_records": sidecar_records,
@@ -4113,7 +4186,7 @@ def run_mvcc(tmp: Path) -> dict:
     served, blocks = _serve(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = launch_counts()
     st = served.tier.stats()
     if "restore" not in blocks or served.recovery is None:
         raise AssertionError("mvcc: no warm start")
@@ -4182,7 +4255,7 @@ def run_serve_distributed() -> dict:
         wall = time.perf_counter() - t0
         if not blocks.get("dist-verify", {}).get("dist.verify_ok"):
             raise AssertionError(f"distributed {mode}: no [dist-verify] OK")
-        launches = ops.launch_counts()
+        launches = launch_counts()
         missing = [k for k in ("sorted_member", "join_bounds") if not launches[k]]
         if missing:
             raise AssertionError(f"distributed {mode}: never launched {missing}")
@@ -4445,19 +4518,20 @@ def main() -> int:
     t_build = build.build()
     log(f"[build] {len(build.SOURCES)} libraries in {t_build:.1f} s")
 
-    # phase 1a (f)'s dry run needs no card: it runs beside phases 1a-1a (e)
+    models = run_models()
+    train = run_train()
+    sharding = run_sharding()
+    # phase 1a (f)'s dry run needs no card: it runs beside phases 2-3,
+    # which time nothing, and not beside the timed phases 1a-1a (e)
     step_dryrun = start_step_dryrun()
     try:
-        models = run_models()
-        train = run_train()
-        sharding = run_sharding()
+        check_small_workloads()
+        check_small_queries()
         run_roofline(train, step_dryrun)
     finally:
         if step_dryrun.poll() is None:
             step_dryrun.kill()
             step_dryrun.wait()
-    check_small_workloads()
-    check_small_queries()
 
     program, dataset, dictionary = lubm_like(
         n_dept=N_DEPT, n_students=N_STUDENTS, n_courses=N_COURSES
@@ -4633,6 +4707,10 @@ def main() -> int:
             **({"path_sweep": num["path_sweep"]} if "path_sweep" in num else {}),
         })
     tune_dir.cleanup()
+    log(f"[tune] inside main-path runs: {sum(t['sweeps'] for _, t in TUNING_IN_RUNS)} "
+        f"join_bounds sweeps, {sum(t['launches'] for _, t in TUNING_IN_RUNS)} launches, "
+        f"{sum(t['seconds'] for _, t in TUNING_IN_RUNS):.4f} s in all, over "
+        f"{[run for run, _ in TUNING_IN_RUNS]}")
     log("[total] done")
     print(json.dumps({"kernels": kernels_line}))
     print(nvidia_smi())

@@ -3,7 +3,7 @@
 Port of ``repro/kernels/join_bounds.py::join_bounds`` (TPU body
 ``_bounds_kernel``) as the hand-written CUDA kernel ``csrc/join_bounds.cu``,
 by one of three paths (:data:`PATHS`) that :func:`route` picks by the
-number of left keys (on a card through the tuner, :mod:`.tune`): for many, the key span of the right keys cut into
+numbers of keys (on a card through the tuner, :mod:`.tune`): for many, the key span of the right keys cut into
 equal buckets, an exact table of where each bucket starts built per
 call, and both bounds of a left key read from its one bucket; for fewer,
 a thread per left key searching all of the right keys; for very few, a
@@ -39,8 +39,8 @@ def route(n: int, m: int, dtype: torch.dtype | None = None, device=None) -> str:
     """The path of :data:`PATHS` that a call with ``n`` left and ``m``
     right keys takes: an empty right side the warp path; on a card
     (``device`` a CUDA device) the path the tune cache picks for ``dtype``
-    and ``n``'s size bucket (:func:`.tune.get_blocks`, swept once on a
-    miss); elsewhere the hand-set rule (``tune.DEFAULTS``: at most
+    and the two sides' size buckets (:func:`.tune.get_blocks`, swept once
+    on a miss); elsewhere the hand-set rule (``tune.DEFAULTS``: at most
     :data:`WARP_KEYS` left keys the warp path, at most
     :data:`THREAD_KEYS` the thread path, more the table)."""
     from . import tune
@@ -48,7 +48,7 @@ def route(n: int, m: int, dtype: torch.dtype | None = None, device=None) -> str:
     if not m:
         return "warp"
     if device is not None and torch.device(device).type == "cuda":
-        return tune.get_blocks("join_bounds", dtype, n, device=device)["path"]
+        return tune.get_blocks("join_bounds", dtype, n, m=m, device=device)["path"]
     return tune.default_blocks("join_bounds", n)["path"]
 
 

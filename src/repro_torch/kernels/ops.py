@@ -44,7 +44,9 @@ __all__ = [
     "meter",
     "meter_reset",
     "note_launch",
+    "note_tuning",
     "reset_launch_counts",
+    "tuning_counts",
 ]
 
 KERNELS = (
@@ -57,6 +59,9 @@ _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _largest: dict[str, dict[str, int]] = {k: {} for k in KERNELS}
 #: launches per distinct operand lengths, per kernel
 _shapes: dict[str, dict[tuple, int]] = {k: {} for k in KERNELS}
+#: the launch-path tuner's sweeps (``tune.py``): how many, their launches
+#: (left out of the kernels' counts) and their wall in seconds
+_tuning: dict[str, float] = {"sweeps": 0, "launches": 0, "seconds": 0.0}
 #: the bound C function of each (entry, key type), with its library
 _entries: dict[tuple[str, torch.dtype], tuple] = {}
 
@@ -88,7 +93,22 @@ def launch_shapes(kernel: str) -> list[tuple[dict[str, int], int]]:
     return [(dict(key), n) for key, n in _shapes[kernel].items()]
 
 
+def note_tuning(launches: int, seconds: float) -> None:
+    """Count one sweep of the launch-path tuner: its ``launches`` and its
+    wall, ``seconds``."""
+    _tuning["sweeps"] += 1
+    _tuning["launches"] += launches
+    _tuning["seconds"] += seconds
+
+
+def tuning_counts() -> dict[str, float]:
+    """The tuner's sweeps since the last reset: ``sweeps``, ``launches``
+    and ``seconds`` (their launches are not in :func:`launch_counts`)."""
+    return dict(_tuning)
+
+
 def reset_launch_counts() -> None:
+    _tuning.update(sweeps=0, launches=0, seconds=0.0)
     for k in KERNELS:
         _launches[k] = 0
         _largest[k] = {}

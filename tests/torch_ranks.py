@@ -108,14 +108,17 @@ def task_train(mesh, out: Path, init_path: str, arch: str, n_steps: str, seq: st
             "params": {k: _numpy(p) for k, p in named.items()}}
 
 
-def task_steps(mesh, out: Path, arch: str, n_steps: str, seq: str, batch: str) -> dict:
-    """``n_steps`` train steps of the smoke config from a seeded state,
-    plain and placed by ``state_shardings`` (each batch by
-    ``batch_shardings``): each run's losses and metrics, the initial and
-    the final parameters, gathered."""
+def task_steps(mesh, out: Path, arch: str, n_steps: str, seq: str, batch: str,
+               init_path: str = "") -> dict:
+    """``n_steps`` train steps of the smoke config from a seeded state (or
+    the one pickled at ``init_path``, in the JAX package's layout), plain
+    and placed by ``state_shardings`` (each batch by ``batch_shardings``):
+    each run's losses and metrics, the initial and the final parameters,
+    gathered."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_numpy
     from repro_torch.data import DataConfig, SyntheticCorpus
     from repro_torch.launch.sharding import batch_shardings, state_shardings
     from repro_torch.train import TrainConfig, init_train_state, make_train_step, reshard_state
@@ -128,8 +131,15 @@ def task_steps(mesh, out: Path, arch: str, n_steps: str, seq: str, batch: str) -
                for s in range(int(n_steps))]
     step = make_train_step(cfg, tcfg)
     runs = {}
+    init_state = None
+    if init_path:
+        with open(init_path, "rb") as f:
+            init_state = pickle.load(f)
     for name in ("plain", "placed"):
-        state = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
+        if init_state is None:
+            state = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
+        else:
+            state = train_state_from_numpy(cfg, init_state, device="cpu")
         init = {k: _numpy(p).copy() for k, p in state["params"].named_parameters()}
         if name == "placed":
             state = reshard_state(state, mesh, state_shardings)
