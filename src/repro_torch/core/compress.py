@@ -10,7 +10,8 @@ column with the fewest distinct values maximises run-length encoding.
 The sort is a chain of stable sorts from the least significant key up
 (``np.lexsort`` has no torch counterpart); the segment boundaries come to
 the host once per call as one index list, and every segment's leaves are
-made in one batch.
+made in one batch.  A call is the span ``compress.rows`` with the
+children ``compress.sort``, ``compress.segments`` and ``compress.leaves``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import span
 from .columns import ColumnStore
 
 __all__ = [
@@ -79,11 +81,16 @@ def compress_rows(
     n = rows.shape[0]
     if n == 0:
         return []
-    if not presorted:
-        rows = sort_for_compression(rows)
-    starts = torch.nonzero(segment_breaks(rows)).flatten().tolist()
-    ends = starts[1:] + [n]
-    return _segment_leaves(rows, list(zip(starts, ends)), store)
+    with span("compress.rows", rows=n, arity=rows.shape[1]) as sp:
+        if not presorted:
+            with span("compress.sort"):
+                rows = sort_for_compression(rows)
+        with span("compress.segments"):
+            starts = torch.nonzero(segment_breaks(rows)).flatten().tolist()
+            ends = starts[1:] + [n]
+        sp.set(segments=len(starts))
+        with span("compress.leaves"):
+            return _segment_leaves(rows, list(zip(starts, ends)), store)
 
 
 def _segment_leaves(rows: torch.Tensor, segments, store: ColumnStore):

@@ -7,13 +7,16 @@ duplicates within the round, a sorted-membership test (the
 a persistent sorted index — removes facts already in ``M``, and survivors
 are re-expressed with the paper's ``shuffle`` so that fully-novel
 meta-facts keep their (shared) columns untouched.  Per-candidate survivor
-counts come to the host in one read per predicate.
+counts come to the host in one read per predicate.  Each predicate's
+three steps are the spans ``dedup.unfold``, ``dedup.mask`` and
+``dedup.split``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..obs import span
 from .columns import ColumnStore
 from .joins import split_survivors
 from .metafacts import FactStore, MetaFact
@@ -104,32 +107,37 @@ def elim_dup(
         arity = len(cand[0][0])
         if arity == 0:
             continue
-        cols = [
-            store.unfold_cat([c[j] for c, _ in cand])
-            for j in range(arity)
-        ]
-        rows = torch.stack(cols, dim=1)
+        with span("dedup.unfold") as sp:
+            cols = [
+                store.unfold_cat([c[j] for c, _ in cand])
+                for j in range(arity)
+            ]
+            rows = torch.stack(cols, dim=1)
+            sp.set(rows=rows.shape[0])
 
-        keep = index.fresh_mask(pred, rows) if index is not None else None
-        if keep is None:
-            m_rows = facts.unfold_pred(pred)
-            if m_rows.shape[0] and m_rows.shape[1] != arity:
-                raise ValueError(f"arity mismatch for {pred}")
-            if m_rows.shape[0]:
-                codes_new, codes_m = factorize_rows(rows, m_rows)
-                not_in_m = ~sorted_member(codes_new, torch.sort(codes_m).values)
-            else:
-                codes_new = factorize_rows(rows)[0]
-                not_in_m = torch.ones(rows.shape[0], dtype=torch.bool,
-                                      device=rows.device)
-            keep = not_in_m & first_occurrence_mask(codes_new)
+        with span("dedup.mask"):
+            keep = index.fresh_mask(pred, rows) if index is not None else None
+            if keep is None:
+                m_rows = facts.unfold_pred(pred)
+                if m_rows.shape[0] and m_rows.shape[1] != arity:
+                    raise ValueError(f"arity mismatch for {pred}")
+                if m_rows.shape[0]:
+                    codes_new, codes_m = factorize_rows(rows, m_rows)
+                    not_in_m = ~sorted_member(codes_new, torch.sort(codes_m).values)
+                else:
+                    codes_new = factorize_rows(rows)[0]
+                    not_in_m = torch.ones(rows.shape[0], dtype=torch.bool,
+                                          device=rows.device)
+                keep = not_in_m & first_occurrence_mask(codes_new)
 
-        kept = segment_counts(keep, [length for _, length in cand])
-        if fresh_counts is not None:
-            fresh_counts.setdefault(pred, []).extend(kept)
-        # each distinct column id is split once (a head like ``P(x, x)``
-        # repeats one id)
-        for item in split_survivors(store, cand, keep, kept, inplace_splits):
-            if item is not None:
-                delta.append(MetaFact(pred, item[0], item[1], round_tag))
+        with span("dedup.split", items=len(cand)) as sp:
+            kept = segment_counts(keep, [length for _, length in cand])
+            if fresh_counts is not None:
+                fresh_counts.setdefault(pred, []).extend(kept)
+            # each distinct column id is split once (a head like ``P(x, x)``
+            # repeats one id)
+            for item in split_survivors(store, cand, keep, kept, inplace_splits):
+                if item is not None:
+                    delta.append(MetaFact(pred, item[0], item[1], round_tag))
+            sp.set(survivors=sum(kept))
     return delta

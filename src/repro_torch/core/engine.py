@@ -88,23 +88,10 @@ class MaterialisationStats:
     n_facts: int = 0
     #: constant-bound ``old`` scans served from sorted snapshots
     old_snapshot_scans: int = 0
-    time_compress: float = 0.0
-    time_match: float = 0.0
-    time_join: float = 0.0
-    time_dedup: float = 0.0
     time_total: float = 0.0
     per_round: list[dict] = field(default_factory=list)
     per_stratum: list[dict] = field(default_factory=list)
     plan_cache: dict = field(default_factory=dict)
-
-    def dominant_phase(self) -> str:
-        phases = {
-            "compress": self.time_compress,
-            "match": self.time_match,
-            "join": self.time_join,
-            "dedup": self.time_dedup,
-        }
-        return max(phases, key=phases.get)
 
 
 class CMatEngine:
@@ -202,19 +189,27 @@ class CMatEngine:
     def load(self, dataset) -> None:
         """Compress the explicit dataset (numpy arrays or tensors, moved
         to the engine's device) into meta-facts (Alg. 1 lines 1-4)."""
-        t0 = time.perf_counter()
         self._prov_tables = None
-        for pred, rows in dataset.items():
-            rows = torch.as_tensor(rows, dtype=_I64).to(self.device)
-            if rows.dim() == 1:
-                rows = rows.reshape(-1, 1)
-            rows = unique_rows(rows)
-            self._explicit[pred] = rows
-            if self._dedup_index is not None:
-                self._dedup_index.seed(pred, rows)
-            for cols, length in compress_rows(rows, self.store):
-                self.facts.add(MetaFact(pred, cols, length, round=0))
-        self.stats.time_compress += time.perf_counter() - t0
+        rows_in = meta_facts = 0
+        with span("cmat.load", preds=len(dataset)) as sp:
+            for pred, rows in dataset.items():
+                with span("load.to_device"):
+                    rows = torch.as_tensor(rows, dtype=_I64).to(self.device)
+                    if rows.dim() == 1:
+                        rows = rows.reshape(-1, 1)
+                rows_in += rows.shape[0]
+                with span("load.unique"):
+                    rows = unique_rows(rows)
+                self._explicit[pred] = rows
+                if self._dedup_index is not None:
+                    with span("load.seed_index"):
+                        self._dedup_index.seed(pred, rows)
+                with span("load.compress"):
+                    items = compress_rows(rows, self.store)
+                    for cols, length in items:
+                        self.facts.add(MetaFact(pred, cols, length, round=0))
+                meta_facts += len(items)
+            sp.set(rows_in=rows_in, meta_facts=meta_facts)
 
     # ------------------------------------------------------------------ #
     def materialise(self) -> MaterialisationStats:
@@ -317,7 +312,6 @@ class CMatEngine:
             key = (atom.predicate, atom.terms, which)
             hit = match_cache.get(key)
             if hit is None:
-                t0 = time.perf_counter()
                 hit = self._snapshot_old_match(atom) if which == "old" else None
                 if hit is None:
                     hit = match(
@@ -326,7 +320,6 @@ class CMatEngine:
                         store,
                         self.inplace_splits,
                     )
-                self.stats.time_match += time.perf_counter() - t0
                 match_cache[key] = hit
             return hit
 
@@ -402,7 +395,6 @@ class CMatEngine:
                         "time_ns": time.perf_counter_ns() - t_app,
                     })
 
-        t0 = time.perf_counter()
         fresh_mu: dict[str, list[int]] | None = {} if prov is not None else None
         fresh_flat: dict[str, torch.Tensor] | None = {} if prov is not None else None
         with span("cmat.dedup", round=round_no):
@@ -412,13 +404,10 @@ class CMatEngine:
             if flat_candidates:
                 delta.extend(self._dedup_flat(flat_candidates, round_no,
                                               fresh_counts=fresh_flat))
-        self.stats.time_dedup += time.perf_counter() - t0
 
         # Alg. 1 line 23: re-compress length-one meta-facts
-        t0 = time.perf_counter()
         with span("cmat.recompress", round=round_no):
             delta = self._recompress_singletons(delta, round_no)
-        self.stats.time_compress += time.perf_counter() - t0
 
         for mf in delta:
             facts.add(mf)
@@ -486,7 +475,6 @@ class CMatEngine:
         R = cached_match(step.scan.atom, step.scan.source)
         if R.is_empty():
             return None
-        t0 = time.perf_counter()
         if step.kind == "sjoin":
             if step.filter_left:
                 L = sjoin(R, L, step.key_vars, self.store, self.inplace_splits)
@@ -494,7 +482,6 @@ class CMatEngine:
                 L = sjoin(L, R, step.key_vars, self.store, self.inplace_splits)
         else:
             L = xjoin(L, R, step.key_vars, self.store)
-        self.stats.time_join += time.perf_counter() - t0
         return None if L.is_empty() else L
 
     def _first_scan(self, plan: Plan, cached_match, plan_key) -> SubstSet | None:
@@ -542,18 +529,14 @@ class CMatEngine:
         R = cached_match(last.scan.atom, last.scan.source)
         if R.is_empty():
             return None
-        t0 = time.perf_counter()
         with span("cmat.fused_tail", head=rule.head.predicate) as sp:
             rows = self._xjoin_head_rows(L, R, last.key_vars, rule.head, sp)
             sp.set(
                 rows=0 if rows is None else int(rows.shape[0]),
                 fallback=rows is None,
             )
-        self.stats.time_join += time.perf_counter() - t0
         if rows is None:  # too wide: fall back to the compressed xjoin
-            t0 = time.perf_counter()
             out = xjoin(L, R, last.key_vars, self.store)
-            self.stats.time_join += time.perf_counter() - t0
             return None if out.is_empty() else out
         return rows
 
@@ -799,14 +782,9 @@ class CMatEngine:
             "flat_size_I": flat_repr_size(flat_mat),
             "compressed_size": self.facts.total_repr_size(),
             "mu_stats": self.facts.mu_stats(),
-            "dominant_phase": self.stats.dominant_phase(),
             "rule_applications": self.stats.n_rule_applications,
             "rule_applications_skipped": self.stats.rule_applications_skipped,
             "old_snapshot_scans": self.stats.old_snapshot_scans,
             "plan_cache": dict(self.stats.plan_cache),
             "time_total": self.stats.time_total,
-            "time_dedup": self.stats.time_dedup,
-            "time_join": self.stats.time_join,
-            "time_match": self.stats.time_match,
-            "time_compress": self.stats.time_compress,
         }

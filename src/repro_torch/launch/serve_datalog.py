@@ -777,11 +777,11 @@ def run(argv=None) -> ServeRun:
         get_tracer().enable()
     report = ReportSink(args.report_json)
 
-    def flush_telemetry() -> None:
+    def flush_telemetry() -> int:
+        """Write the exports; returns the span/instant events written."""
         if args.metrics_out:
             write_metrics(args.metrics_out)
-        if args.trace_out:
-            write_chrome_trace(args.trace_out)
+        return write_chrome_trace(args.trace_out) if args.trace_out else 0
 
     program, dataset, dictionary = build_kb(args.kb, args.scale)
     n_explicit = sum(np.asarray(r).shape[0] for r in dataset.values())
@@ -1077,14 +1077,16 @@ def _emit_tail(args, report, served, flush_telemetry) -> None:
         f"KiB), rss {mem_rep['rss_bytes'] / (1 << 20):.1f}MiB",
         mem_snap,
     )
-    flush_telemetry()
+    # the count written, not ``len(tr.events)``: a collection after the
+    # write adds a ``host.gc`` span
+    written = flush_telemetry()
     if args.trace_out:
         tr = get_tracer()
         report.emit(
             "trace",
-            f"{len(tr.events)} span/instant events -> {args.trace_out} "
+            f"{written} span/instant events -> {args.trace_out} "
             f"({tr.dropped} dropped)",
-            {"events": len(tr.events), "dropped": tr.dropped, "path": args.trace_out},
+            {"events": written, "dropped": tr.dropped, "path": args.trace_out},
         )
     if args.metrics_out:
         report.emit(

@@ -56,10 +56,6 @@ MATERIALISATION_COUNTERS = (
     "n_rule_applications",
     "rule_applications_skipped",
     "old_snapshot_scans",
-    "time_compress",
-    "time_match",
-    "time_join",
-    "time_dedup",
     "time_total",
 )
 

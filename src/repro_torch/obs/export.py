@@ -4,7 +4,8 @@
 trace-event format (which Perfetto and ``chrome://tracing`` load): one
 ``"ph": "X"`` complete event per span with microsecond ``ts``/``dur``
 relative to the tracer origin, process and thread ``"M"`` metadata
-events, and ``"ph": "i"`` events for instants.
+events, and ``"ph": "i"`` events for instants.  Each event's ``args``
+carry the span's ``id``, ``parent`` and ``root`` beside its attributes.
 
 ``write_metrics(path)`` dumps one flat ``{name: scalar}`` snapshot of the
 registry (:meth:`MetricsRegistry.snapshot`), so the file diffs cleanly
@@ -67,8 +68,7 @@ def chrome_trace(tracer: Tracer | None = None) -> dict:
         else:
             ev["ph"] = "X"
             ev["dur"] = rec.dur_ns / 1e3
-        if rec.args:
-            ev["args"] = dict(rec.args)
+        ev["args"] = dict(rec.args, id=rec.id, parent=rec.parent, root=rec.root)
         events.append(ev)
     return {
         "traceEvents": events,

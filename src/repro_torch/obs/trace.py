@@ -1,9 +1,12 @@
 """Span tracer: nested, low-overhead, host-side only.
 
 One process-wide :class:`Tracer` (swap it with :func:`set_tracer`)
-records *complete* spans — name, start, duration, nesting depth, and a
-flat attribute dict — with ``time.perf_counter_ns`` timestamps.  Spans
-are context managers::
+records *complete* spans — name, start, duration, nesting depth, a flat
+attribute dict, and three ids: the span's own (``id``, a per-tracer
+serial), its parent's (``parent``, the span open on the same thread when
+it began) and its root's (``root``, the outermost span open then, shared
+by every span of one ``load`` or one ``materialise`` call).  Spans are
+context managers::
 
     from repro_torch.obs import span
 
@@ -24,6 +27,21 @@ Design constraints (DESIGN.md §Observability):
 * **Bounded.**  At ``max_events`` the tracer stops recording (and
   counts the drops) instead of growing without bound under a serving
   loop left tracing for hours.
+* **One clock.**  Every timestamp is ``time.perf_counter_ns``, which is
+  ``CLOCK_MONOTONIC`` on Linux.  A device trace that moves the profiler's
+  device events onto that clock (as the benchmark's ``DeviceTrace``
+  does) lines them up with these spans.
+* **The collector is a span.**  While a tracer is enabled it holds one
+  callback in ``gc.callbacks``, and each collection of Python's garbage
+  collector becomes a ``host.gc`` span (args ``generation``,
+  ``collected``, ``uncollectable``) under the span open on the
+  collecting thread.  The callback appends its record directly and never
+  touches the span stack, so a collection that starts inside the
+  tracer's own bookkeeping cannot mis-nest anything; hooks do not see
+  it.  A disabled tracer holds no callback, and :func:`set_tracer` takes
+  the outgoing tracer's callback out and puts the incoming one's in if it
+  is enabled, so a tracer swapped out stops recording collections as it
+  stops receiving spans.
 
 The recorded span list converts losslessly to the Chrome trace-event /
 Perfetto JSON format (``repro.obs.export`` in the reference package) — open the file in
@@ -32,6 +50,8 @@ Perfetto JSON format (``repro.obs.export`` in the reference package) — open th
 
 from __future__ import annotations
 
+import gc
+import itertools
 import threading
 import time
 
@@ -47,23 +67,36 @@ __all__ = [
 
 class SpanRecord:
     """One closed span: ``name``, ``start_ns``/``dur_ns`` (perf-counter
-    clock), ``depth`` (0 = root), ``tid``, and ``args``."""
+    clock), ``depth`` (0 = root), ``tid``, ``args``, and the ids ``id``,
+    ``parent`` (``None`` at the root) and ``root``."""
 
-    __slots__ = ("name", "start_ns", "dur_ns", "depth", "tid", "args")
+    __slots__ = ("name", "start_ns", "dur_ns", "depth", "tid", "args",
+                 "id", "parent", "root")
 
-    def __init__(self, name, start_ns, dur_ns, depth, tid, args):
+    def __init__(self, name, start_ns, dur_ns, depth, tid, args,
+                 id=None, parent=None, root=None):
         self.name = name
         self.start_ns = start_ns
         self.dur_ns = dur_ns
         self.depth = depth
         self.tid = tid
         self.args = args
+        self.id = id
+        self.parent = parent
+        self.root = root
 
     def __repr__(self):  # pragma: no cover - debugging aid
         return (
             f"SpanRecord({self.name!r}, dur={self.dur_ns / 1e6:.3f}ms, "
             f"depth={self.depth}, args={self.args!r})"
         )
+
+
+def _under(stack: list, rec_id: int) -> tuple:
+    """``(parent, root)`` of record ``rec_id`` begun under ``stack``."""
+    if stack:
+        return stack[-1]._id, stack[-1]._root
+    return None, rec_id
 
 
 class _NoopSpan:
@@ -94,7 +127,8 @@ class _Span:
     exporter does not care.
     """
 
-    __slots__ = ("_tracer", "name", "args", "_start", "_depth")
+    __slots__ = ("_tracer", "name", "args", "_start", "_depth", "_id",
+                 "_parent", "_root")
 
     def __init__(self, tracer: Tracer, name: str, args: dict):
         self._tracer = tracer
@@ -109,6 +143,8 @@ class _Span:
     def __enter__(self):
         stack = self._tracer._stack()
         self._depth = len(stack)
+        self._id = next(self._tracer._ids)
+        self._parent, self._root = _under(stack, self._id)
         stack.append(self)
         self._start = time.perf_counter_ns()
         return self
@@ -133,6 +169,9 @@ class _Span:
                 self._depth,
                 threading.get_ident(),
                 self.args,
+                self._id,
+                self._parent,
+                self._root,
             )
         )
         return False
@@ -142,8 +181,10 @@ class Tracer:
     """Process-wide span recorder (see module docstring)."""
 
     def __init__(self, enabled: bool = False, max_events: int = 1_000_000):
-        self.enabled = bool(enabled)
+        self.enabled = False
         self.max_events = int(max_events)
+        #: the serial that ``SpanRecord.id`` draws from
+        self._ids = itertools.count()
         self.events: list[SpanRecord] = []
         #: spans/instants not recorded because ``max_events`` was hit
         self.dropped = 0
@@ -162,6 +203,8 @@ class Tracer:
         self.origin_ns = time.perf_counter_ns()
         #: wall-clock at origin (Perfetto UIs show absolute times)
         self.origin_unix_s = time.time()
+        if enabled:
+            self.enable()
 
     # ------------------------------------------------------------------ #
     def _stack(self) -> list:
@@ -170,11 +213,37 @@ class Tracer:
             stack = self._local.stack = []
         return stack
 
-    def _record(self, rec: SpanRecord) -> None:
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` entry: a collection becomes a ``host.gc`` span
+        under the span open on the collecting thread (see module
+        docstring)."""
+        if phase == "start":
+            stack = self._stack()
+            rec_id = next(self._ids)
+            self._local.gc = (time.perf_counter_ns(), len(stack), rec_id,
+                              *_under(stack, rec_id))
+            return
+        began = getattr(self._local, "gc", None)
+        if began is None:  # enabled mid-collection
+            return
+        self._local.gc = None
+        start, depth, rec_id, parent, root = began
+        self._append(SpanRecord(
+            "host.gc", start, time.perf_counter_ns() - start, depth,
+            threading.get_ident(),
+            {"generation": info["generation"], "collected": info["collected"],
+             "uncollectable": info["uncollectable"]},
+            rec_id, parent, root,
+        ))
+
+    def _append(self, rec: SpanRecord) -> None:
         if len(self.events) >= self.max_events:
             self.dropped += 1
         else:
             self.events.append(rec)
+
+    def _record(self, rec: SpanRecord) -> None:
+        self._append(rec)
         # hooks still see boundaries once the event buffer is full —
         # watermark samplers must not stop with the recording.
         if self.hooks:
@@ -207,23 +276,37 @@ class Tracer:
         from a genuinely sub-resolution span."""
         if not self.enabled:
             return
+        stack = self._stack()
+        rec_id = next(self._ids)
         self._record(
             SpanRecord(
                 name,
                 time.perf_counter_ns(),
                 -1,
-                len(self._stack()),
+                len(stack),
                 threading.get_ident(),
                 args,
+                rec_id,
+                *_under(stack, rec_id),
             )
         )
 
     # ------------------------------------------------------------------ #
+    def _hook_gc(self) -> None:
+        if self._on_gc not in gc.callbacks:
+            gc.callbacks.append(self._on_gc)
+
+    def _unhook_gc(self) -> None:
+        if self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
+
     def enable(self) -> None:
+        self._hook_gc()
         self.enabled = True
 
     def disable(self) -> None:
         self.enabled = False
+        self._unhook_gc()
 
     def reset(self) -> None:
         """Drop recorded events (the enabled flag is unchanged)."""
@@ -248,9 +331,15 @@ def get_tracer() -> Tracer:
 
 
 def set_tracer(tracer: Tracer) -> Tracer:
-    """Swap the process-wide tracer (returns the previous one)."""
+    """Swap the process-wide tracer (returns the previous one).  The
+    collector callback moves with it: out of the previous tracer, into
+    ``tracer`` if it is enabled."""
     global _TRACER
     prev = _TRACER
+    if prev is not tracer:
+        prev._unhook_gc()
+        if tracer.enabled:
+            tracer._hook_gc()
     _TRACER = tracer
     return prev
 
