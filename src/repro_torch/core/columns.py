@@ -12,6 +12,18 @@ Node lengths live on the host, so the DAG's shape (lengths, run counts,
 children) never needs a device read.  A leaf unfolds through the
 ``rle_expand`` kernel; unfoldings are cached per node.
 
+Leaves made in a batch (:meth:`ColumnStore.new_leaves`,
+:meth:`ColumnStore.new_constants`) are *block-backed*: a leaf holds no
+tensor of its own, only its batch's run block with host ints for its
+first run and its run count, and, as its cached unfolding, the batch's
+value block with its offset in it.  ``run_values`` / ``run_counts`` are
+views made when asked.  Leaves made one at a time own their tensors.  The
+batch readers (:meth:`ColumnStore.unfold_cat`,
+:meth:`ColumnStore.copy_splits`) gather by ranges, and merge consecutive
+parts that lie end to end in one block into one slice.  So a batch of
+leaves costs the host one Python object a leaf, and no tensor a leaf:
+fewer objects to make, and fewer for the collector to walk.
+
 The paper's ``shuffle`` (Algorithm 4) splits a leaf ``a`` into ``b_in`` /
 ``b_out`` and *redefines* ``mu(a) := b_in . b_out`` (:meth:`split` with
 ``inplace=True``); the copy mode, the engines' default, copies the
@@ -23,6 +35,7 @@ entry with ``m`` RLE runs costs ``1 + 2*m`` symbols.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import rle_expand
@@ -53,17 +66,42 @@ def _n_runs_host(ids: list[int]) -> int:
 
 
 class _Leaf:
-    __slots__ = ("run_values", "run_counts", "length", "owned")
+    """A leaf's RLE payload and its cached unfolding.
 
-    def __init__(self, run_values: torch.Tensor, run_counts: torch.Tensor,
-                 length: int, owned: bool = False):
-        self.run_values = run_values
-        self.run_counts = run_counts
+    The leaf's runs are ``[r0, r0 + n_runs)`` of the run block ``rv`` /
+    ``rc``: all of a block of its own for a leaf made alone, a range of
+    its batch's block for a batch-made one.  Its cached unfolding, when
+    there is one, is ``vals[v0: v0 + length]``."""
+
+    __slots__ = ("rv", "rc", "r0", "n_runs", "length", "owned", "vals", "v0")
+
+    def __init__(self, rv: torch.Tensor, rc: torch.Tensor, length: int,
+                 owned: bool = False, r0: int = 0, n_runs: int | None = None,
+                 vals: torch.Tensor | None = None, v0: int = 0):
+        self.rv = rv
+        self.rc = rc
+        self.r0 = r0
+        self.n_runs = rv.shape[0] if n_runs is None else n_runs
         self.length = length
         #: the payload is a disjoint slice of a block made for a batch of
         #: leaves: its bytes are the leaf's own, though the tensors view
         #: a larger storage
         self.owned = owned
+        self.vals = vals
+        self.v0 = v0
+
+    @property
+    def run_values(self) -> torch.Tensor:
+        return _view(self.rv, self.r0, self.r0 + self.n_runs)
+
+    @property
+    def run_counts(self) -> torch.Tensor:
+        return _view(self.rc, self.r0, self.r0 + self.n_runs)
+
+
+def _view(t: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """``t[start:stop]``, or ``t`` itself when that is all of it."""
+    return t if start == 0 and stop == t.shape[0] else t[start:stop]
 
 
 class _Concat:
@@ -86,6 +124,10 @@ class ColumnStore:
         self._next_id = 0
         self.n_splits = 0
         self.n_inplace_redefs = 0
+        #: leaf parts :meth:`unfold_cat` has gathered, and the slices they
+        #: merged into (``slices / leaves``: how far the gather coalesces)
+        self.n_gathered_leaves = 0
+        self.n_gathered_slices = 0
         # running byte accounting (O(1) memory_report)
         self._nbytes_owned = 0
         self._nbytes_backed = 0
@@ -99,7 +141,7 @@ class ColumnStore:
     @staticmethod
     def _node_nbytes_of(node) -> int:
         if isinstance(node, _Leaf):  # int64 values and counts, one per run
-            return 16 * node.run_values.shape[0]
+            return 16 * node.n_runs
         return 8 * len(node.children)
 
     def _account_add(self, cid: int, node) -> None:
@@ -122,6 +164,7 @@ class ColumnStore:
         self._nbytes_owned -= self._node_nbytes_of(node) - backed
 
     def _cache_set(self, cid: int, values: torch.Tensor) -> None:
+        """Cache a composite's unfolding (a leaf keeps its own)."""
         prev = self._unfold_cache.get(cid)
         if prev is not None:
             self._cache_nbytes -= tensor_nbytes(prev)
@@ -129,9 +172,23 @@ class ColumnStore:
         self._cache_nbytes += tensor_nbytes(values)
 
     def _cache_drop(self, cid: int) -> None:
+        node = self._nodes.get(cid)
+        if isinstance(node, _Leaf):
+            if node.vals is not None:
+                self._cache_nbytes -= 8 * node.length
+                node.vals = None
+            return
         prev = self._unfold_cache.pop(cid, None)
         if prev is not None:
             self._cache_nbytes -= tensor_nbytes(prev)
+
+    def is_cached(self, cid: int) -> bool:
+        """Whether ``cid``'s unfolding is cached (:meth:`unfold` would
+        launch nothing for it)."""
+        node = self._nodes[cid]
+        if isinstance(node, _Leaf):
+            return node.vals is not None
+        return cid in self._unfold_cache
 
     def recount_bytes(self) -> None:
         """Rebuild the running counters from the node table (after
@@ -139,9 +196,11 @@ class ColumnStore:
         self._nbytes_owned = 0
         self._nbytes_backed = 0
         self._backed_by_id = {}
+        self._cache_nbytes = sum(tensor_nbytes(a) for a in self._unfold_cache.values())
         for cid, node in self._nodes.items():
             self._account_add(cid, node)
-        self._cache_nbytes = sum(tensor_nbytes(a) for a in self._unfold_cache.values())
+            if isinstance(node, _Leaf) and node.vals is not None:
+                self._cache_nbytes += 8 * node.length
 
     def memory_report(self) -> dict[str, int]:
         """Owned node payload bytes, backed node bytes (slices of a larger
@@ -168,29 +227,33 @@ class ColumnStore:
         self._account_add(cid, node)
         return cid
 
-    def new_leaves(self, flat: torch.Tensor, starts: list[int],
-                   lengths: list[int]) -> list[int]:
+    def new_leaves(self, flat: torch.Tensor, starts, lengths) -> list[int]:
         """One leaf per part ``flat[starts[i]: starts[i] + lengths[i]]``,
         created in the order given (ascending ids), as :meth:`new_leaf`
         would create them one by one; each part's values stay cached as
-        its unfolding.  Parts must not overlap and may leave gaps.
+        its unfolding.  Parts must not overlap and may leave gaps;
+        ``starts`` and ``lengths`` are host sequences or arrays.
 
         One run-length pass covers every part: runs start at every part's
         start and end and wherever the value changes; the run counts per
         part and the index of each part's first run come to the host in
         one read (two synchronisations in all, however many leaves).  The
-        leaves' payloads are disjoint slices of the batch's run block."""
-        n_parts = len(starts)
+        leaves are block-backed: each holds the batch's run block with
+        its first run and run count, and ``flat`` with its start as its
+        cached unfolding.  No tensor is made per leaf."""
+        starts = np.asarray(starts, dtype=np.int64)
+        lengths = np.asarray(lengths, dtype=np.int64)
+        n_parts = starts.shape[0]
         if n_parts == 0:
             return []
         dev = self.device
         flat = flat.to(device=dev, dtype=_I64)
         n = flat.shape[0]
         # by start, an empty part before a part that starts where it does
-        order = sorted(range(n_parts), key=lambda i: (starts[i], lengths[i]))
-        s_sorted = [starts[i] for i in order]
-        e_sorted = [starts[i] + lengths[i] for i in order]
-        bounds = torch.tensor(s_sorted + e_sorted, dtype=_I64).to(dev)
+        order = np.lexsort((lengths, starts))
+        s_sorted = starts[order]
+        bounds = torch.from_numpy(np.concatenate([s_sorted, s_sorted + lengths[order]]))
+        bounds = bounds.to(dev)
         part_starts, part_ends = bounds[:n_parts], bounds[n_parts:]
         change = torch.ones(n + 1, dtype=torch.bool, device=dev)
         if n > 1:
@@ -207,47 +270,33 @@ class ColumnStore:
         per_part = torch.zeros(n_parts, dtype=_I64, device=dev).scatter_add_(
             0, part.clamp(min=0), inside.to(_I64))
         first = torch.searchsorted(run_pos, part_starts)
-        counts, firsts = torch.stack([per_part, first]).tolist()
-        # the parts' runs and values as views, in sorted order: split with
-        # the gaps between parts as pieces of their own
-        run_sizes, value_sizes = [], []
-        prev_run = prev_value = 0
-        for r in range(n_parts):
-            run_sizes += (firsts[r] - prev_run, counts[r])
-            prev_run = firsts[r] + counts[r]
-            value_sizes += (s_sorted[r] - prev_value, e_sorted[r] - s_sorted[r])
-            prev_value = e_sorted[r]
-        run_sizes.append(run_pos.shape[0] - prev_run)
-        value_sizes.append(n - prev_value)
-        rvs = torch.split(run_values, run_sizes)[1::2]
-        rcs = torch.split(run_counts, run_sizes)[1::2]
-        values = torch.split(flat, value_sizes)[1::2]
-        rank_of = [0] * n_parts
-        for rank, i in enumerate(order):
-            rank_of[i] = rank
+        counts_sorted, firsts_sorted = torch.stack([per_part, first]).cpu().numpy()
+        counts, firsts = np.empty_like(counts_sorted), np.empty_like(firsts_sorted)
+        counts[order], firsts[order] = counts_sorted, firsts_sorted
         base = self._next_id
-        nodes, cache = self._nodes, self._unfold_cache
-        for i in range(n_parts):
-            r = rank_of[i]
-            nodes[base + i] = _Leaf(rvs[r], rcs[r], lengths[i], True)
-            cache[base + i] = values[r]
+        nodes = self._nodes
+        for cid, r0, n_runs, v0, length in zip(
+                range(base, base + n_parts), firsts.tolist(), counts.tolist(),
+                starts.tolist(), lengths.tolist()):
+            nodes[cid] = _Leaf(run_values, run_counts, length, True, r0, n_runs, flat, v0)
         self._next_id = base + n_parts
-        self._nbytes_owned += 16 * sum(counts)
-        self._cache_nbytes += 8 * sum(lengths)
+        self._nbytes_owned += 16 * int(counts.sum())
+        self._cache_nbytes += 8 * int(lengths.sum())
         return list(range(base, base + n_parts))
 
     def new_constants(self, values: list[int], counts: list[int]) -> list[int]:
         """RLE leaves ``values[i] * counts[i]``, created in order, their
-        payloads sent to the device in one copy (no launch per leaf)."""
+        payloads sent to the device in one copy (no launch per leaf), as
+        one run block the leaves are backed by."""
         n_leaves = len(values)
         if not n_leaves:
             return []
         block = torch.tensor([values, counts], dtype=_I64).to(self.device)
-        rvs, rcs = torch.split(block[0], 1), torch.split(block[1], 1)
+        rv, rc = block[0], block[1]
         base = self._next_id
         nodes = self._nodes
         for i, c in enumerate(counts):
-            nodes[base + i] = _Leaf(rvs[i], rcs[i], c, True)
+            nodes[base + i] = _Leaf(rv, rc, c, True, i, 1)
         self._next_id = base + n_leaves
         self._nbytes_owned += 16 * n_leaves
         return list(range(base, base + n_leaves))
@@ -258,7 +307,8 @@ class ColumnStore:
         values = values.to(device=self.device, dtype=_I64)
         rv, rc = rle_encode(values)
         cid = self._add_leaf(rv, rc, int(values.shape[0]))
-        self._cache_set(cid, values)
+        self._nodes[cid].vals = values
+        self._cache_nbytes += tensor_nbytes(values)
         return cid
 
     def new_leaf_rle(self, run_values: torch.Tensor, run_counts: torch.Tensor,
@@ -356,7 +406,7 @@ class ColumnStore:
         composite: runs over the child-id sequence) — host only."""
         node = self._nodes[cid]
         if isinstance(node, _Leaf):
-            return int(node.run_values.shape[0])
+            return node.n_runs
         return _n_runs_host(node.children)
 
     def repr_size(self, cid: int, adaptive: bool = True) -> int:
@@ -432,7 +482,7 @@ class ColumnStore:
             node = self._nodes[cid]
             if isinstance(node, _Leaf):
                 cells += node.length
-                runs += int(node.run_values.shape[0])
+                runs += node.n_runs
         return cells, runs
 
     def expanded_nbytes(self, roots) -> int:
@@ -462,27 +512,64 @@ class ColumnStore:
     # ------------------------------------------------------------------ #
     def unfold(self, cid: int) -> torch.Tensor:
         """Recursively unfold a meta-constant into its constant vector."""
+        node = self._nodes[cid]
+        if isinstance(node, _Leaf):
+            if node.vals is None:
+                self._expand([node])
+            return _view(node.vals, node.v0, node.v0 + node.length)
         cached = self._unfold_cache.get(cid)
         if cached is not None:
             return cached
-        node = self._nodes[cid]
-        if isinstance(node, _Leaf):
-            out = rle_expand(node.run_values, node.run_counts, node.length)
-        else:
-            parts = [self.unfold(c) for c in node.children]
-            out = (
-                torch.cat(parts)
-                if parts
-                else torch.zeros(0, dtype=_I64, device=self.device)
-            )
+        parts = [self.unfold(c) for c in node.children]
+        out = (
+            torch.cat(parts)
+            if parts
+            else torch.zeros(0, dtype=_I64, device=self.device)
+        )
         self._cache_set(cid, out)
         return out
+
+    def _expand(self, leaves: list[_Leaf]) -> None:
+        """Unfold uncached leaves in one ``rle_expand`` over their runs
+        (gathered by ranges, as :meth:`unfold_cat` gathers values); its
+        output becomes their value block, each leaf at its offset."""
+        rv_parts, rc_parts = [], []
+        vb = cb = None
+        lo = hi = total = 0
+        for nd in leaves:
+            total += nd.length
+            if nd.rv is vb and nd.rc is cb and nd.r0 == hi:
+                hi += nd.n_runs
+                continue
+            if vb is not None:
+                rv_parts.append(_view(vb, lo, hi))
+                rc_parts.append(_view(cb, lo, hi))
+            vb, cb, lo, hi = nd.rv, nd.rc, nd.r0, nd.r0 + nd.n_runs
+        rv_parts.append(_view(vb, lo, hi))
+        rc_parts.append(_view(cb, lo, hi))
+        if len(rv_parts) == 1:
+            out = rle_expand(rv_parts[0], rc_parts[0], total)
+        else:
+            out = rle_expand(torch.cat(rv_parts), torch.cat(rc_parts), total)
+        off = 0
+        for nd in leaves:
+            nd.vals, nd.v0 = out, off
+            off += nd.length
+        self._cache_nbytes += 8 * total
 
     def unfold_cat(self, cids, meter=None) -> torch.Tensor:
         """``torch.cat`` of the unfoldings of ``cids``, in order.  The
         leaves among them not yet cached unfold together, in one
-        ``rle_expand`` over their concatenated runs, and each caches its
-        slice of the output, as :meth:`unfold` one by one would cache it.
+        ``rle_expand`` over their runs, and take its output as their
+        value block, each at its offset, as :meth:`unfold` one by one
+        would cache them.
+
+        The gather walks ``cids`` once and merges consecutive parts that
+        lie end to end in one block into one slice before the one
+        ``torch.cat``: the leaves of one batch in id order, one column at
+        a time (a load's or a ``compress_rows``' column), are one slice.
+        :attr:`n_gathered_leaves` and :attr:`n_gathered_slices` count the
+        leaf parts gathered and the slices they merged into.
 
         ``meter(cached_cells, fresh_cells)``, when given, receives what
         :meth:`unfold` one by one would have found cached and unfolded
@@ -492,43 +579,58 @@ class ColumnStore:
             if meter is not None:
                 meter(0, 0)
             return torch.zeros(0, dtype=_I64, device=self.device)
-        cache = self._unfold_cache
-        parts = [cache.get(c) for c in cids]
-        fresh = list(dict.fromkeys(c for c, t in zip(cids, parts) if t is None))
-        composite = False
+        nodes, cache = self._nodes, self._unfold_cache
+        fresh: dict[int, object] = {}  # uncached ids, by first occurrence
+        for c in cids:
+            node = nodes[c]
+            if node.vals is None if isinstance(node, _Leaf) else c not in cache:
+                fresh[c] = node
         if fresh:
-            nodes = [self._nodes[c] for c in fresh]
-            leaves = [(c, nd) for c, nd in zip(fresh, nodes) if isinstance(nd, _Leaf)]
-            composite = len(leaves) < len(fresh)
-            if len(leaves) > 1:
-                lengths = [nd.length for _, nd in leaves]
-                out = rle_expand(
-                    torch.cat([nd.run_values for _, nd in leaves]),
-                    torch.cat([nd.run_counts for _, nd in leaves]),
-                    sum(lengths),
-                )
-                for (c, _), piece in zip(leaves, torch.split(out, lengths)):
-                    cache[c] = piece
-                self._cache_nbytes += 8 * sum(lengths)
-            if meter is not None and composite:
-                # a composite caches its children as it unfolds: meter the
-                # calls one by one
-                seen: set[int] = set()
-                cached = unfolded = 0
-                for c, t in zip(cids, parts):
-                    n = self._nodes[c].length
-                    if t is not None or c in seen:
-                        cached += n
-                    else:
-                        unfolded += n
-                        seen.update(self.reachable([c]))
-                meter(cached, unfolded)
-                meter = None
-            parts = [t if t is not None else self.unfold(c) for c, t in zip(cids, parts)]
+            leaves = [nd for nd in fresh.values() if isinstance(nd, _Leaf)]
+            if leaves:
+                self._expand(leaves)
+            if len(leaves) < len(fresh):
+                if meter is not None:
+                    # a composite caches its children as it unfolds: meter
+                    # the calls one by one
+                    seen: set[int] = set()
+                    cached = unfolded = 0
+                    for c in cids:
+                        n = nodes[c].length
+                        if c not in fresh or c in seen:
+                            cached += n
+                        else:
+                            unfolded += n
+                            seen.update(self.reachable([c]))
+                    meter(cached, unfolded)
+                    meter = None
+                for c, nd in fresh.items():
+                    if not isinstance(nd, _Leaf):
+                        self.unfold(c)
         if meter is not None:
-            fresh_cells = sum(self._nodes[c].length for c in fresh)
-            meter(sum(t.shape[0] for t in parts) - fresh_cells, fresh_cells)
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+            fresh_cells = sum(nd.length for nd in fresh.values())
+            meter(sum(nodes[c].length for c in cids) - fresh_cells, fresh_cells)
+        slices = []
+        base = None
+        lo = hi = n_leaves = n_leaf_slices = 0
+        for c in cids:
+            node = nodes[c]
+            if isinstance(node, _Leaf):
+                block, off = node.vals, node.v0
+                n_leaves += 1
+            else:
+                block, off = cache[c], 0
+            if block is base and off == hi:
+                hi += node.length
+                continue
+            if base is not None:
+                slices.append(_view(base, lo, hi))
+            base, lo, hi = block, off, off + node.length
+            n_leaf_slices += isinstance(node, _Leaf)
+        slices.append(_view(base, lo, hi))
+        self.n_gathered_leaves += n_leaves
+        self.n_gathered_slices += n_leaf_slices
+        return slices[0] if len(slices) == 1 else torch.cat(slices)
 
     def _invalidate_up(self, cid: int) -> None:
         stack = [cid]
@@ -547,17 +649,40 @@ class ColumnStore:
         ``keep[offset: offset + length(cid)]`` (``kept`` of them, known on
         the host), created in order.  Same nodes as one ``split(...,
         inplace=False)`` per request, with a constant number of
-        synchronisations."""
+        synchronisations.
+
+        The requests are gathered slot by slot: the first request at each
+        offset in order, then the second, and so on (an item's distinct
+        columns share its offset).  So the same column of consecutive
+        items, and their ranges of ``keep``, lie end to end: the values
+        come from :meth:`unfold_cat`'s coalesced gather, and the survivor
+        mask from ``keep`` by the same merged ranges, not one slice a
+        request.  The survivors are one block-backed batch
+        (:meth:`new_leaves`), their ids in request order."""
         if not requests:
             return []
         self.n_splits += len(requests)
-        values = self.unfold_cat([c for c, _, _ in requests])
-        mask = torch.cat([keep[off: off + self.length(c)] for c, off, _ in requests])
-        starts, total = [], 0
-        for _, _, k in requests:
-            starts.append(total)
-            total += k
-        return self.new_leaves(values[mask], starts, [k for _, _, k in requests])
+        req = np.asarray(requests, dtype=np.int64).reshape(-1, 3)
+        offs, kept = req[:, 1], req[:, 2]
+        idx = np.arange(req.shape[0])
+        run_start = np.maximum.accumulate(
+            np.where(np.r_[True, offs[1:] != offs[:-1]], idx, 0))
+        order = np.argsort(idx - run_start, kind="stable")
+        cids = req[order, 0].tolist()
+        values = self.unfold_cat(cids)
+        nodes = self._nodes
+        lo = offs[order]
+        hi = lo + np.fromiter((nodes[c].length for c in cids), dtype=np.int64,
+                              count=len(cids))
+        # a slice of ``keep`` starts where a range does not continue the last
+        first = np.flatnonzero(np.r_[True, lo[1:] != hi[:-1]])
+        last = np.r_[first[1:] - 1, len(cids) - 1]
+        pieces = [keep[a:b] for a, b in zip(lo[first].tolist(), hi[last].tolist())]
+        mask = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        kept_sorted = kept[order]
+        starts = np.empty_like(kept)
+        starts[order] = np.cumsum(kept_sorted) - kept_sorted
+        return self.new_leaves(values[mask], starts, kept)
 
     def split(self, cid: int, keep: torch.Tensor, inplace: bool = True) -> int:
         """Split a column by a boolean mask over its unfolding; returns the
@@ -612,6 +737,7 @@ class ColumnStore:
             b_out = self.new_leaf(vals[~sub])
             visited[cid] = b_in
             # redefine mu(cid) := b_in . b_out  (paper, Alg. 4 line 51)
+            self._cache_drop(cid)
             self._account_remove(cid, node)
             redefined = _Concat([b_in, b_out], n)
             self._nodes[cid] = redefined
@@ -650,11 +776,12 @@ class ColumnStore:
         splits with ``inplace=False``), and no surviving meta-fact
         references a dropped id."""
         for cid in range(mark, self._next_id):
-            node = self._nodes.pop(cid, None)
+            node = self._nodes.get(cid)
             if node is None:
                 continue
-            self._account_remove(cid, node)
             self._cache_drop(cid)
+            del self._nodes[cid]
+            self._account_remove(cid, node)
             self._parents.pop(cid, None)
             if isinstance(node, _Concat):
                 for child in node.children:

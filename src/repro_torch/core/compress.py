@@ -86,28 +86,31 @@ def compress_rows(
             with span("compress.sort"):
                 rows = sort_for_compression(rows)
         with span("compress.segments"):
-            starts = torch.nonzero(segment_breaks(rows)).flatten().tolist()
-            ends = starts[1:] + [n]
+            starts = torch.nonzero(segment_breaks(rows)).flatten().cpu().numpy()
+            ends = np.append(starts[1:], n)
         sp.set(segments=len(starts))
-        with span("compress.leaves"):
-            return _segment_leaves(rows, list(zip(starts, ends)), store)
+        with span("compress.leaves", leaves=len(starts) * rows.shape[1]):
+            return _segment_leaves(rows, starts, ends, store)
 
 
-def _segment_leaves(rows: torch.Tensor, segments, store: ColumnStore):
-    """``(column_ids, length)`` per ``[s, e)`` row segment: one leaf per
-    segment and column, created segment by segment in one batch
-    (:meth:`ColumnStore.new_leaves` over the rows laid out column by
-    column)."""
+def _segment_leaves(rows: torch.Tensor, starts: np.ndarray, ends: np.ndarray,
+                    store: ColumnStore):
+    """``(column_ids, length)`` per ``[starts[i], ends[i])`` row segment:
+    one leaf per segment and column, created segment by segment in one
+    batch (:meth:`ColumnStore.new_leaves` over the rows laid out column by
+    column), so segment ``i``'s column ``j`` gets id ``base + i * k + j``."""
     n, k = rows.shape
     flat = rows.t().contiguous().reshape(-1)  # column j at [j * n, (j + 1) * n)
+    lengths = ends - starts
     ids = store.new_leaves(
         flat,
-        [j * n + s for s, _ in segments for j in range(k)],
-        [e - s for s, e in segments for _ in range(k)],
+        (starts[:, None] + np.arange(k) * n).reshape(-1),
+        np.repeat(lengths, k),
     )
-    return [
-        (tuple(ids[i * k: (i + 1) * k]), e - s) for i, (s, e) in enumerate(segments)
-    ]
+    if not ids:
+        return []
+    cols = np.arange(ids[0], ids[0] + len(ids)).reshape(-1, k).tolist()
+    return list(zip(map(tuple, cols), lengths.tolist()))
 
 
 def compress_grouped(
@@ -120,23 +123,22 @@ def compress_grouped(
     (host index arrays); ``rows`` must be sorted within each group.  Used
     by ``xjoin``: each right-hand key group is compressed once and its
     meta-constants shared by every matching left row."""
+    if not len(group_starts):
+        return []
     n, k = rows.shape
     breaks = segment_breaks(rows)
-    if len(group_starts):
-        breaks[torch.as_tensor(group_starts, device=rows.device)] = True
+    breaks[torch.as_tensor(group_starts, device=rows.device)] = True
     seg_start_idx = torch.nonzero(breaks).flatten().cpu().numpy()
     seg_end_idx = np.append(seg_start_idx[1:], n)
     group_of_seg = np.searchsorted(group_starts, seg_start_idx, side="right") - 1
     out: list[list[tuple[tuple[int, ...], int]]] = [
         [] for _ in range(len(group_starts))
     ]
-    segments, owner = [], []
-    for s, e, g in zip(seg_start_idx.tolist(), seg_end_idx.tolist(),
-                       group_of_seg.tolist()):
-        if g < 0 or s >= group_ends[g]:
-            continue  # segment not covered by any group
-        segments.append((s, min(e, int(group_ends[g]))))
-        owner.append(g)
-    for g, item in zip(owner, _segment_leaves(rows, segments, store)):
+    group_end = np.asarray(group_ends, dtype=np.int64)[np.maximum(group_of_seg, 0)]
+    # a segment that no group covers makes no leaves
+    covered = (group_of_seg >= 0) & (seg_start_idx < group_end)
+    items = _segment_leaves(rows, seg_start_idx[covered],
+                            np.minimum(seg_end_idx, group_end)[covered], store)
+    for g, item in zip(group_of_seg[covered].tolist(), items):
         out[g].append(item)
     return out

@@ -8,8 +8,9 @@ a persistent sorted index — removes facts already in ``M``, and survivors
 are re-expressed with the paper's ``shuffle`` so that fully-novel
 meta-facts keep their (shared) columns untouched.  Per-candidate survivor
 counts come to the host in one read per predicate.  Each predicate's
-three steps are the spans ``dedup.unfold``, ``dedup.mask`` and
-``dedup.split``.
+three steps are the spans ``dedup.unfold`` (args ``rows``, and ``leaves``
+and ``slices``: the leaf parts gathered and the slices they merged into),
+``dedup.mask`` and ``dedup.split``.
 """
 
 from __future__ import annotations
@@ -108,12 +109,14 @@ def elim_dup(
         if arity == 0:
             continue
         with span("dedup.unfold") as sp:
+            leaves0, slices0 = store.n_gathered_leaves, store.n_gathered_slices
             cols = [
                 store.unfold_cat([c[j] for c, _ in cand])
                 for j in range(arity)
             ]
             rows = torch.stack(cols, dim=1)
-            sp.set(rows=rows.shape[0])
+            sp.set(rows=rows.shape[0], leaves=store.n_gathered_leaves - leaves0,
+                   slices=store.n_gathered_slices - slices0)
 
         with span("dedup.mask"):
             keep = index.fresh_mask(pred, rows) if index is not None else None

@@ -101,7 +101,7 @@ class _CountingStore:
         self._stats = stats
 
     def unfold(self, cid: int) -> torch.Tensor:
-        cached = cid in self._store._unfold_cache
+        cached = self._store.is_cached(cid)
         out = self._store.unfold(cid)
         if cached:
             self._stats.cells_cached += out.numel()

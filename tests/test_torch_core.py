@@ -204,10 +204,154 @@ def test_compress_rows_segmentation(k, hi):
     got = tcompress.compress_rows(_t(rows), store)
     assert len(got) == len(want)
     for (gc, gl), (wc, wl) in zip(got, want):
+        assert gc == tuple(int(w) for w in wc)
         assert gl == wl
         for g, w in zip(gc, wc):
             assert_array_equal(store.unfold(g).numpy(), jstore.unfold(w))
             assert store.n_runs(g) == jstore.n_runs(w)
+
+
+# --------------------------------------------------------------------- #
+# block-backed leaves: batch constructors and readers against the
+# one-at-a-time ones
+# --------------------------------------------------------------------- #
+_FLAT = np.array([3, 3, 3, 5, 5, 7, 1, 1, 2, 2, 2, 9, 4, 4, 4, 4, 6, 0, 0, 8,
+                  8, 8, 1, 5, 5, 5, 5, 2], dtype=np.int64)
+
+#: (starts, lengths) of one new_leaves batch over _FLAT
+_BATCHES = {
+    "gaps": ([0, 7, 12, 20], [5, 3, 4, 6]),
+    "empty": ([0, 3, 3, 9, 27], [3, 0, 4, 0, 1]),
+    "unordered": ([20, 4, 11, 0], [8, 6, 5, 4]),
+    "one": ([6], [13]),
+}
+
+
+def _payload(store, cid):
+    rv, rc = store.leaf_payload(cid)
+    return rv.numpy().tobytes(), rc.numpy().tobytes()
+
+
+def _same_stores(got, want, ids):
+    assert got.n_nodes() == want.n_nodes() and got.mark() == want.mark()
+    assert got.memory_report() == want.memory_report()
+    for cid in ids:
+        assert got.length(cid) == want.length(cid)
+        assert got.is_leaf(cid) == want.is_leaf(cid)
+        assert got.is_cached(cid) == want.is_cached(cid)
+        if got.is_leaf(cid):
+            assert _payload(got, cid) == _payload(want, cid)
+        assert_array_equal(got.unfold(cid).numpy(), want.unfold(cid).numpy())
+    assert got.memory_report() == want.memory_report()
+
+
+def _two_batch_store(batched):
+    """Two leaf batches over _FLAT and its reverse, singly made leaves
+    (cached and not), a constant batch and a composite between them.
+    ``batched=False`` makes every leaf one at a time, in the same order
+    (the same ids)."""
+    store = convert.store_from_numpy({}, 0, device="cpu")
+    flats = [_t(_FLAT), _t(_FLAT[::-1].copy())]
+    starts, lengths = [0, 5, 9, 14, 20], [5, 4, 5, 6, 8]
+    for flat in flats:
+        if batched:
+            store.new_leaves(flat, starts, lengths)
+        else:
+            for s, n in zip(starts, lengths):
+                store.new_leaf(flat[s: s + n])
+        store.new_leaf(_t(np.array([7, 7, 8])))
+        store.new_leaf_rle(_t(np.array([2, 6])), _t(np.array([3, 1])), 4)
+    if batched:
+        store.new_constants([4, 9], [3, 2])
+    else:
+        store.new_constant(4, 3)
+        store.new_constant(9, 2)
+    store.new_concat([2, 7, 15])
+    return store
+
+
+#: interleaved ids of _two_batch_store: batch 0 is ids 0-4, batch 1 ids
+#: 7-11, singles 5-6 and 12-13, constants 14-15, the composite 16
+_CIDS = [0, 1, 2, 7, 8, 12, 3, 4, 9, 10, 11, 16, 5, 13, 14, 2, 15, 6, 0, 1]
+
+
+#: copy_splits' items over _two_batch_store: one leaf at three offsets
+#: (once beside another column), and leaves of both batches, a constant,
+#: a singly made leaf and the composite
+_SPLIT_ITEMS = {
+    "copy_splits_one_leaf": [(9,), (9, 2), (9,)],
+    "copy_splits_leaves": [(0, 7), (1, 8), (2, 9), (14,), (16,), (3, 10), (5, 12)],
+}
+
+
+def _meter_one_by_one(store, cids):
+    cached = fresh = 0
+    for c in cids:
+        if store.is_cached(c):
+            cached += store.length(c)
+        else:
+            fresh += store.length(c)
+        store.unfold(c)
+    return cached, fresh
+
+
+@pytest.mark.parametrize("case", [*_BATCHES, "unfold_cat", "copy_splits_one_leaf",
+                                  "copy_splits_leaves"])
+def test_block_leaves_equal_one_at_a_time(case):
+    if case in _BATCHES:
+        starts, lengths = _BATCHES[case]
+        got = convert.store_from_numpy({}, 0, device="cpu")
+        want = convert.store_from_numpy({}, 0, device="cpu")
+        ids = got.new_leaves(_t(_FLAT), starts, lengths)
+        assert ids == [want.new_leaf(_t(_FLAT[s: s + n])) for s, n in zip(starts, lengths)]
+        _same_stores(got, want, ids)
+        return
+    got, want = _two_batch_store(True), _two_batch_store(False)
+    _same_stores(got, want, [])
+    if case == "unfold_cat":
+        metered = []
+        out = got.unfold_cat(_CIDS, meter=lambda *a: metered.append(a))
+        assert metered == [_meter_one_by_one(want, _CIDS)]
+        assert_array_equal(out.numpy(), torch.cat([want.unfold(c) for c in _CIDS]).numpy())
+        _same_stores(got, want, range(got.mark()))
+        return
+    # items of equal-length columns, as split_survivors hands them over:
+    # an item's distinct columns are requests at one offset of ``keep``
+    items = _SPLIT_ITEMS[case]
+    lengths = [got.length(cols[0]) for cols in items]
+    offs = np.cumsum([0] + lengths)[:-1].tolist()
+    keep = np.random.default_rng(len(items)).random(sum(lengths)) < 0.5
+    for off, n in zip(offs, lengths):
+        keep[off], keep[off + n - 1] = True, False  # partly kept
+    requests = [(c, off, int(keep[off: off + n].sum()))
+                for cols, off, n in zip(items, offs, lengths) for c in cols]
+    ids = got.copy_splits(requests, _t(keep))
+    assert ids == [
+        want.split(c, _t(keep[off: off + want.length(c)]), inplace=False)
+        for c, off, _ in requests
+    ]
+    assert [got.length(c) for c in ids] == [k for _, _, k in requests]
+    assert got.n_splits == want.n_splits == len(requests)
+    _same_stores(got, want, range(got.mark()))
+
+
+def test_new_leaves_makes_no_tensor_per_leaf():
+    """A batch of leaves adds a constant number of live tensors, whatever
+    the number of parts: the leaves keep host offsets into the blocks."""
+    import gc
+
+    def n_tensors():
+        gc.collect()
+        return sum(isinstance(o, torch.Tensor) for o in gc.get_objects())
+
+    store = convert.store_from_numpy({}, 0, device="cpu")
+    flat = torch.arange(20_000, dtype=torch.int64) // 3
+    before = n_tensors()
+    ids = store.new_leaves(flat, list(range(0, 20_000, 2)), [2] * 10_000)
+    store.unfold_cat(ids)
+    after = n_tensors()
+    assert len(ids) == 10_000 and store.n_nodes() == 10_000
+    assert after - before < 32
 
 
 # --------------------------------------------------------------------- #

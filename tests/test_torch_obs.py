@@ -237,5 +237,38 @@ def test_engine_spans_on_a_uba_kb(uba_kb):
             assert by_id[r.parent].name == "cmat.dedup"
         if r.name in ("compress.sort", "compress.segments", "compress.leaves"):
             assert by_id[r.parent].name == "compress.rows"
+        if r.name == "compress.leaves":
+            rows = by_id[r.parent].args
+            assert r.args["leaves"] == rows["segments"] * rows["arity"]
+    # the dedup gather: block-backed parts merge into fewer slices
+    unfolds = [r.args for r in tr.events if r.name == "dedup.unfold"]
+    assert all(0 <= a["slices"] <= a["leaves"] for a in unfolds)
+    assert 0 < sum(a["slices"] for a in unfolds) < sum(a["leaves"] for a in unfolds)
     # no new span is named as a child of dedup that its share subtracts
     assert not any(n.startswith("cmat.") for n in ENGINE_SPANS - {"cmat.load"})
+
+
+def test_dedup_unfold_gathers_a_compress_batch_as_one_slice_per_column(tracer):
+    """The leaves of one ``compress_rows`` batch, unfolded together in id
+    order one column at a time, are one slice of the batch's block per
+    column; ``dedup.unfold`` says so, and the survivors are the rows."""
+    from repro_torch.core.columns import ColumnStore
+    from repro_torch.core.compress import compress_rows
+    from repro_torch.core.dedup import elim_dup
+    from repro_torch.core.metafacts import FactStore
+
+    rng = np.random.default_rng(5)
+    rows = np.unique(rng.integers(0, 12, size=(300, 3)), axis=0)
+    store = ColumnStore("cpu")
+    items = compress_rows(torch.from_numpy(rows), store)
+    assert len(items) > 1
+    prev = set_tracer(tracer)
+    try:
+        delta = elim_dup({"P": items}, FactStore(store), store, round_tag=1)
+    finally:
+        set_tracer(prev)
+    (unfold,) = [r.args for r in tracer.events if r.name == "dedup.unfold"]
+    assert unfold == {"rows": len(rows), "leaves": 3 * len(items), "slices": 3}
+    got = torch.cat([torch.stack([store.unfold(c) for c in mf.columns], dim=1)
+                     for mf in delta])
+    assert_array_equal(np.unique(got.numpy(), axis=0), rows)
