@@ -22,11 +22,11 @@ from contextlib import contextmanager
 from types import SimpleNamespace
 
 from .reference import flat
-from .spec import HERE, Spec
+from .spec import HERE, Spec, engine_name
 
 
 class ControlEngine:
-    """``CMatEngine``'s calls the jobs driver makes, answered by the
+    """The engine's calls the jobs driver makes, answered by the
     reference with 32-bit fact codes."""
 
     def __init__(self, rules: str, program, device=None, **_):
@@ -47,16 +47,18 @@ class ControlEngine:
 @contextmanager
 def in_place(spec: Spec):
     """Within the block, the jobs driver builds a :class:`ControlEngine`
-    where it would build the program's ``CMatEngine``."""
+    where it would build the program's engine: the attribute of
+    ``repro_torch.core`` that the configuration's ``engine.class`` names."""
     import repro_torch.core as core
 
     rules = (spec.root / spec.config["program"]).read_text()
-    saved = core.CMatEngine
-    core.CMatEngine = functools.partial(ControlEngine, rules)
+    name = engine_name(spec.config)
+    saved = getattr(core, name)
+    setattr(core, name, functools.partial(ControlEngine, rules))
     try:
         yield
     finally:
-        core.CMatEngine = saved
+        setattr(core, name, saved)
 
 
 def control(argv: list[str], *, device: str = "cuda", root=None, config=None) -> dict:
@@ -67,7 +69,7 @@ def control(argv: list[str], *, device: str = "cuda", root=None, config=None) ->
     cell = argv[argv.index("--workload") + 1]
     spec = Spec.load(HERE.parent if root is None else root, cell)
     if config is not None:
-        spec = Spec(spec.root, spec.cell, config, spec.traffic, spec.end_to_end, spec.per_layer)
+        spec = spec.with_config(config)
     src = str(spec.root / "src")
     if src not in sys.path:
         sys.path.insert(0, src)

@@ -42,30 +42,19 @@ hands to both the system under test and the reference.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 
-__all__ = ["KB", "generate"]
+from . import KB
+
+__all__ = ["KB", "TINY", "WIDE", "generate"]
 
 RANKS = ("FullProfessor", "AssociateProfessor", "AssistantProfessor", "Lecturer")
 _PUBS = ("full", "associate", "assistant", "lecturer")
 
-
-@dataclass(frozen=True)
-class KB:
-    """One generated knowledge base."""
-
-    program: str
-    #: predicate -> (n, arity) int64 ids, each relation's rows unique
-    dataset: dict[str, np.ndarray]
-    n_terms: int
-    #: entities of each kind (``department``, ``faculty``, ...)
-    counts: dict[str, int]
-
-    @property
-    def n_triples(self) -> int:
-        return sum(int(r.shape[0]) for r in self.dataset.values())
+#: one university, about 160,000 triples
+TINY = {"n_universities": 1}
+#: five universities, whose ids pass 2**16
+WIDE = {"n_universities": 5}
 
 
 def _draw(rng, lohi, n: int) -> np.ndarray:

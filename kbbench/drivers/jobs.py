@@ -3,9 +3,10 @@
 Set-up generates the KB once, as host arrays, and runs one whole job,
 which builds the kernels, fills the tuner's cache and warms every shape a
 job uses.  The window then runs jobs back to back: each frees the previous
-job's store, builds a new engine, loads the dataset (compressing it into
-meta-facts) and materialises it, and synchronises the device.  The window
-closes at the end of the first job to finish after ``--seconds``.
+job's store, builds a new engine of the class the configuration's
+``engine.class`` names, loads the dataset (compressing it into meta-facts)
+and materialises it, and synchronises the device.  The window closes at
+the end of the first job to finish after ``--seconds``.
 
 ``reason_facts_per_s`` is the facts in the closures of all jobs over the
 time from the window's start to the end of the last job.  The check holds
@@ -20,22 +21,30 @@ import time
 
 from ..compare import fact_mismatches
 from ..harness import Context, Outcome
+from ..hostload import snapshot, uptime_s
 from ..reference import flat
+from ..spec import engine_name
 
 __all__ = ["run"]
 
 
 def run(ctx: Context) -> Outcome:
-    from repro_torch.core import CMatEngine, parse_program
+    import repro_torch.core as core
     from repro_torch.obs.memory import get_accountant
 
     kb = ctx.kb()
-    ctx.log("KB generated")
-    program = parse_program(kb.program)
+    ctx.log(f"KB generated (machine up {uptime_s():.0f} s)")
+    program = core.parse_program(kb.program)
+    engine = engine_name(ctx.config)
     engine_args = dict(ctx.config["engine"].get("args", {}))
 
     def job():
-        eng = CMatEngine(program, device=ctx.device, **engine_args)
+        try:
+            cls = getattr(core, engine)  # at each job, so that the control can stand in
+        except AttributeError:
+            raise AttributeError(f"configuration {ctx.spec.cell['config']!r}: engine.class: "
+                                 f"repro_torch.core has no {engine}") from None
+        eng = cls(program, device=ctx.device, **engine_args)
         with ctx.spans.span("job.load"):
             eng.load(kb.dataset)
             ctx.sync()
@@ -57,14 +66,15 @@ def run(ctx: Context) -> Outcome:
         with ctx.spans.span("job.free"):
             eng = None  # the previous job's store goes before the next is built
             gc.collect()
-        t_job, cpu_job = time.perf_counter_ns(), time.process_time()
+        before = snapshot()
         with ctx.spans.span("job"):
             eng, n = job()
+        after = snapshot()
         facts.append(n)
         free, load, mat = (ctx.spans.spans[-k].dur_ns / 1e9 for k in (4, 3, 2))
-        ctx.log(f"job {len(facts)}: {(time.perf_counter_ns() - t_job) / 1e9:.3f} s "
-                f"(load {load:.3f} s, materialise {mat:.3f} s; host cpu "
-                f"{time.process_time() - cpu_job:.3f} s; free before it {free:.3f} s)")
+        ctx.log(f"job {len(facts)}: {(after.wall_ns - before.wall_ns) / 1e9:.3f} s "
+                f"(load {load:.3f} s, materialise {mat:.3f} s; free before it {free:.3f} s; "
+                f"{after.since(before)})")
         if time.perf_counter_ns() >= deadline:
             break
     t1 = time.perf_counter_ns()

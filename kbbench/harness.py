@@ -16,7 +16,7 @@ import sys
 import time
 from dataclasses import dataclass, field
 
-from .data import uba
+from .data import KB
 from .trace import DeviceTrace, Span, Spans, SyncCounter, busy_ns
 
 __all__ = ["Context", "Outcome", "Record"]
@@ -86,10 +86,11 @@ class Context:
         self._dev = DeviceTrace() if self.trace and self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------ #
-    def kb(self) -> uba.KB:
-        """The configuration's KB and program, generated from the seed."""
-        return uba.generate(self.config["kb"], self.seed,
-                            (self.spec.root / self.config["program"]).read_text())
+    def kb(self) -> KB:
+        """The configuration's KB and program, generated from the seed by
+        the generator its ``kb.generator`` names."""
+        return self.spec.generator.generate(
+            self.config["kb"], self.seed, (self.spec.root / self.config["program"]).read_text())
 
     def log(self, what: str) -> None:
         """One line on standard error: ``what``, at seconds since start."""

@@ -92,7 +92,7 @@ def measure(argv, *, device: str = "cuda", root: Path | None = None,
     root = HERE.parent if root is None else root
     spec = Spec.load(root, args.workload)
     if config is not None:
-        spec = Spec(spec.root, spec.cell, config, spec.traffic, spec.end_to_end, spec.per_layer)
+        spec = spec.with_config(config)
     src = str(root / "src")
     if src not in sys.path:
         sys.path.insert(0, src)

@@ -1,6 +1,6 @@
 """Fixtures of the harness's tests: a checkout of this one's benchmark, a
-small KB for every cell, and the ``card`` marker of the tests that need a
-CUDA device."""
+small KB for every cell (the sizes its own KB generator gives), and the
+``card`` marker of the tests that need a CUDA device."""
 
 from __future__ import annotations
 
@@ -9,17 +9,15 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import ModuleType
 
 import pytest
+
+from kbbench.spec import load_generator
 
 ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT / "src") not in sys.path:  # the program, as the harness reaches it
     sys.path.insert(0, str(ROOT / "src"))
-
-#: a KB small enough for a test (one university, about 120,000 triples),
-#: and one whose ids pass 2**16, where the control's narrower codes collide
-TINY = {"n_universities": 1}
-WIDE = {"n_universities": 5}
 
 
 def pytest_configure(config):
@@ -54,12 +52,22 @@ def cuda_device():
     return "cuda"
 
 
-def config_of(cell: str, root: Path = ROOT, **sizes) -> dict:
+def generator_of(cfg: dict, root: Path = ROOT) -> ModuleType:
+    """The module of the configuration's KB generator, in the checkout at
+    ``root``."""
+    return load_generator(cfg["kb"]["generator"], root / "kbbench")
+
+
+def config_of(cell: str, root: Path = ROOT, size: str = "TINY", **sizes) -> dict:
+    """The cell's configuration in the checkout at ``root``, cut by its
+    generator's ``size`` overrides (``TINY``: a KB small enough for a test;
+    ``WIDE``: ids past 2**16, where the control's narrower codes collide),
+    then by ``sizes``."""
     b = json.loads((root / "BENCHMARK.json").read_text())
     w = next(c for c in b["workloads"] if c["name"] == cell)
     entry = next(c for c in b["configs"] if c["name"] == w["config"])
     cfg = json.loads((root / entry["file"]).read_text())
-    cfg["kb"].update(sizes or TINY)
+    cfg["kb"].update(getattr(generator_of(cfg, root), size), **sizes)
     return cfg
 
 

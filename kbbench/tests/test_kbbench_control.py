@@ -11,13 +11,13 @@ import torch
 from kbbench import control
 from kbbench.run import measure, result
 
-from .conftest import WIDE, cells, config_of
+from .conftest import cells, config_of
 
 
 @pytest.mark.parametrize("cell", cells())
 def test_control_fails_every_cell(cell, bench_root):
     out = control.control(["--workload", cell, "--seed", "2147483671", "--seconds", "1"],
-                          device="cpu", root=bench_root, config=config_of(cell, **WIDE))
+                          device="cpu", root=bench_root, config=config_of(cell, size="WIDE"))
     assert out["correct"] is False, out["checks"]
     assert out["checks"]["fact_mismatches"]["value"] > out["checks"]["fact_mismatches"]["limit"]
 
